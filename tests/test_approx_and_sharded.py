@@ -1,36 +1,8 @@
 import numpy as np
-import jax.numpy as jnp
 
-from vers_tpu.ops.topk import approx_scan_topk, fused_scan_topk
 from vers_tpu.parallel.sharded_index import ShardedFlatIndex
 from vers_tpu.utils.data import read_fvecs, read_ivecs
-from vers_tpu.utils.harness import exhaustive_batch, recall_at_k
-
-
-def test_approx_scan_topk_matches_exact_on_cpu(rng):
-    # on CPU approx_min_k lowers to an exact path, so ids must match
-    x = rng.normal(size=(512, 24)).astype(np.float32)
-    q = rng.normal(size=(9, 24)).astype(np.float32)
-    ad, ai = approx_scan_topk(jnp.asarray(q), jnp.asarray(x), 500, 10, chunk_size=128)
-    ed, ei = fused_scan_topk(jnp.asarray(q), jnp.asarray(x), 500, 10)
-    assert recall_at_k(np.asarray(ai), np.asarray(ei)) > 0.99
-    # distances include the qq term again (true squared distances)
-    np.testing.assert_allclose(
-        np.sort(np.asarray(ad), axis=1)[:, 0],
-        np.asarray(ed)[:, 0],
-        rtol=1e-3, atol=1e-3,
-    )
-
-
-def test_approx_scan_topk_cosine(rng):
-    x = rng.normal(size=(256, 16)).astype(np.float32)
-    x /= np.linalg.norm(x, axis=1, keepdims=True)
-    q = x[:5]
-    ad, ai = approx_scan_topk(
-        jnp.asarray(q), jnp.asarray(x), 256, 5, metric="cosine", chunk_size=64
-    )
-    assert (np.asarray(ai)[:, 0] == np.arange(5)).all()
-    assert np.allclose(np.asarray(ad)[:, 0], 0.0, atol=1e-4)
+from vers_tpu.utils.harness import exhaustive_batch
 
 
 def test_sharded_flat_index_roundtrip(rng, tmp_path):

@@ -79,8 +79,8 @@ def test_descend_forest_multiprobe(rng):
 
 def test_descend_forest_flat_matches_dense(rng):
     """The packed hyperplane layout (descend_forest_flat, r5 — the
-    dense (T, L, TC, d) tables were ~95% padding and OOMed HBM at 1M x
-    16 trees) routes every (query, probe) to the SAME bin as the dense
+    dense (T, L, TC, d) tables were ~95% padding at 1M x 16 trees)
+    routes every (query, probe) to the SAME bin as the dense
     path, including multiprobe flips."""
     import jax
 

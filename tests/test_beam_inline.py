@@ -67,9 +67,9 @@ def test_inline_descent_recall(graph):
     neighbours on an exact-kNN graph. Random gaussian data is the WORST
     case for PCA navigation (flat spectrum — dp/d of the energy
     survives, unlike real embeddings' decaying spectra), so this is a
-    smoke floor; the 1M A/B (benchmarks/tpu_1m_inline_ab.py) is the
-    real measure, where the inline step's cheapness buys back recall
-    via a wider ef."""
+    smoke floor; a 1M measurement on the card is the real one (not
+    taken yet), where the inline step's cheapness buys back recall via
+    a wider ef."""
     x, adj = graph
     n, d = x.shape
     dp = 2 * d // 3
@@ -195,9 +195,9 @@ def test_inline_device_add_consistency():
 
 
 def test_auto_policy_and_expand_resolution():
-    """nav_inline_dp="auto" policy (VERDICT r3 #3): off below the
+    """nav_inline_dp="auto" policy: off below the
     row-gather-bound scale, budget-fitted dp above it; beam_expand=None
-    resolves 8 classic / 4 inline; the inline-table HBM guard refuses
+    resolves 8 classic / 4 inline; the inline-table memory guard refuses
     oversized allocations with a clear message."""
     import dataclasses
 
@@ -214,7 +214,7 @@ def test_auto_policy_and_expand_resolution():
 
     cfg = HNSWConfig()
     assert cfg.nav_inline_dp == "auto"
-    # small corpora: classic gathers (qps-neutral, saves the HBM)
+    # small corpora: classic gathers (saves the device memory)
     assert auto_inline_dp(cfg, 100_000, 100_096, 32) is None
     # 1M x deg32: the dp=64 table (3.8GiB) fits the default 4GiB
     # budget — the r3 1M headline configuration, now the default

@@ -86,29 +86,3 @@ def test_deterministic_builds():
     tb = ANNIndex.build_index(2, 16, x, np.arange(300))
     for t1, t2 in zip(ta._trees, tb._trees):
         np.testing.assert_array_equal(t1.leaf_of_vec, t2.leaf_of_vec)
-
-
-def test_to_device_chunked_equals_direct():
-    from vers_tpu.core import to_device
-
-    rng = np.random.default_rng(3)
-    x = rng.normal(size=(1000, 64)).astype(np.float32)
-    direct = np.asarray(jnp.asarray(x))
-    # tiny max_chunk_bytes forces many slices
-    sliced = np.asarray(to_device(x, max_chunk_bytes=64 * 64))
-    np.testing.assert_array_equal(direct, sliced)
-    # 1-d and scalar-ish inputs pass through
-    v = rng.normal(size=(257,)).astype(np.float32)
-    np.testing.assert_array_equal(
-        np.asarray(to_device(v, max_chunk_bytes=128)), v
-    )
-
-
-def test_from_device_chunked_equals_direct():
-    from vers_tpu.core import from_device
-
-    rng = np.random.default_rng(4)
-    x = jnp.asarray(rng.normal(size=(777, 32)).astype(np.float32))
-    np.testing.assert_array_equal(
-        np.asarray(x), from_device(x, max_chunk_bytes=32 * 32)
-    )

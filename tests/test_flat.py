@@ -1,4 +1,5 @@
 import numpy as np
+import pytest
 
 from vers_tpu.index.flat import FlatIndex
 from vers_tpu.utils.harness import exhaustive_batch, search_exhaustive
@@ -46,19 +47,25 @@ def test_flat_topk_larger_than_corpus(rng):
     assert (res.ids[:, 5:] == -1).all()
 
 
-def test_flat_engine_options():
-    """config.engine routes to the approx / bucket scans; results stay
-    near-exact on a small corpus."""
+@pytest.mark.parametrize("metric", ["sq_euclidean", "cosine"])
+def test_flat_exact_matches_float64_reference(metric):
+    """Exact flat search against a float64 numpy reference: ids up to
+    ties, distances within f32 rounding of the expansion."""
     from vers_tpu.config import FlatConfig
 
-    rng = np.random.default_rng(11)
-    x = rng.normal(size=(700, 48)).astype(np.float32)
-    exact = FlatIndex.build_index(x).search_batch(x[:32], 10)
-    for engine in ("approx", "bucket"):
-        idx = FlatIndex.build_index(x, config=FlatConfig(engine=engine))
-        got = idx.search_batch(x[:32], 10)
-        assert got.ids[0][0] == 0  # self-hit survives every engine
-        overlap = sum(
-            len(set(exact.ids[i]) & set(got.ids[i])) for i in range(32)
-        ) / (32 * 10)
-        assert overlap > 0.9, (engine, overlap)
+    rng = np.random.default_rng(5)
+    x = rng.normal(size=(3000, 40)).astype(np.float32)
+    x /= np.linalg.norm(x, axis=1, keepdims=True)
+    q = rng.normal(size=(17, 40)).astype(np.float32)
+    q /= np.linalg.norm(q, axis=1, keepdims=True)
+    res = FlatIndex.build_index(x, config=FlatConfig(metric=metric)).search_batch(q, 10)
+    x64, q64 = x.astype(np.float64), q.astype(np.float64)
+    if metric == "cosine":
+        d = 1.0 - q64 @ x64.T
+    else:
+        d = ((q64[:, None, :] - x64[None, :, :]) ** 2).sum(-1)
+    ref_i = np.argsort(d, axis=1, kind="stable")[:, :10]
+    ref_d = np.take_along_axis(d, ref_i, axis=1)
+    np.testing.assert_allclose(res.distances, ref_d, rtol=1e-5, atol=2e-5)
+    for r in range(q.shape[0]):
+        assert set(res.ids[r]) == set(ref_i[r])

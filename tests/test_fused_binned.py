@@ -58,20 +58,18 @@ def test_fused_probes_given_matches_shared():
     )
 
 
-@pytest.mark.parametrize("kernel_ids", [False, True])
+@pytest.mark.parametrize("metric", ["sq_euclidean", "cosine"])
 @pytest.mark.parametrize(
     "n,d,k,q_n,nprobe,skew",
     [
         (3000, 32, 16, 200, 1, False),
-        (3000, 32, 16, 500, 3, True),
-        (997, 16, 7, 33, 2, True),
+        (3000, 300, 16, 500, 3, True),  # d not a power of two
+        (997, 12, 7, 33, 2, True),      # d < 16: columns padded
     ],
 )
-def test_pallas_packed_matches_shared(n, d, k, q_n, nprobe, skew,
-                                      kernel_ids):
-    """The Pallas packed-scan kernel (interpret mode on CPU) returns
-    exactly the two-dispatch reference results — in both epilogue-s2o
-    and in-kernel id-stream modes."""
+def test_pallas_packed_matches_shared(n, d, k, q_n, nprobe, skew, metric):
+    """The packed-scan kernel (interpret mode on CPU) returns the
+    two-dispatch reference results for both metrics."""
     rng = np.random.default_rng(42)
     x = rng.normal(size=(n, d)).astype(np.float32)
     bins = (
@@ -82,10 +80,12 @@ def test_pallas_packed_matches_shared(n, d, k, q_n, nprobe, skew,
     layout = binned.make_layout(x, bins, k)
     cents = jnp.asarray(rng.normal(size=(k, d)).astype(np.float32))
     q = jnp.asarray(rng.normal(size=(q_n, d)).astype(np.float32))
-    d1, i1 = binned.binned_topk_shared(q, cents, nprobe, layout, top_k=10)
-    d2, i2 = binned.binned_topk_pallas(
-        q, cents, nprobe, layout, top_k=10, q_blk=64, r_blk=256, chunk=128,
-        kernel_ids=kernel_ids,
+    d1, i1 = binned.binned_topk_shared(
+        q, cents, nprobe, layout, top_k=10, metric=metric
+    )
+    d2, i2 = binned.binned_topk_fused(
+        q, cents, nprobe, layout, top_k=10, metric=metric,
+        engine="pallas", interpret=True,
     )
     np.testing.assert_array_equal(np.asarray(i1), np.asarray(i2))
     np.testing.assert_allclose(
@@ -93,24 +93,35 @@ def test_pallas_packed_matches_shared(n, d, k, q_n, nprobe, skew,
     )
 
 
-def test_lsh_pallas_engine_matches_xla():
-    """Forest search on the Pallas kernel path (interpret mode) returns
-    the XLA engine's results."""
-    from vers_tpu.config import LSHConfig
+@pytest.mark.parametrize("probes_per_tree", [2, None])  # fixed, deficit-gated
+def test_lsh_pallas_engine_matches_xla(probes_per_tree):
+    """Forest search on the kernel engine (interpret mode) returns the
+    XLA engine's results, at fixed probes and under the default deficit
+    gate (whose deactivated ranks the kernel leaves unwritten)."""
     from vers_tpu.index.lsh import ANNIndex
+    from vers_tpu.ops.forest_shared import forest_search_shared
 
     rng = np.random.default_rng(3)
     n, d = 2000, 24
     x = rng.normal(size=(n, d)).astype(np.float32)
     idx = ANNIndex.build_index(3, 50, x, np.arange(n))
-    q = x[:100] + 0.01 * rng.normal(size=(100, d)).astype(np.float32)
-    r_x = idx.search_batch(q, 8, probes_per_tree=2)
-    idx.config = LSHConfig(num_trees=3, max_node_size=50, engine="pallas")
-    r_p = idx.search_batch(q, 8, probes_per_tree=2)
-    np.testing.assert_array_equal(r_x.ids, r_p.ids)
-    # kernel precomputes corpus norms in f64; ~1e-5 abs drift is fine
+    q = jnp.asarray(x[:100] + 0.01 * rng.normal(size=(100, d)), jnp.float32)
+    n_probes, deficit_k = idx._probe_plan(8, probes_per_tree)
+    assert (deficit_k > 0) == (probes_per_tree is None)
+    out = {}
+    for engine in ("xla", "pallas"):
+        sh, plan = idx._shared_plan(100, 8, engine)
+        out[engine] = forest_search_shared(
+            q, *idx.shared_operands(sh), n_probes=n_probes,
+            num_bins=sh["num_bins"], top_k=8, deficit_k=deficit_k,
+            interpret=True, **plan,
+        )
+    np.testing.assert_array_equal(
+        np.asarray(out["xla"][1]), np.asarray(out["pallas"][1])
+    )
     np.testing.assert_allclose(
-        r_x.distances, r_p.distances, rtol=1e-4, atol=1e-4
+        np.asarray(out["xla"][0]), np.asarray(out["pallas"][0]),
+        rtol=1e-4, atol=1e-4,
     )
 
 
@@ -198,12 +209,11 @@ def test_deficit_gate_tree_major():
 
 def test_pallas_gated_sentinel_ranks_masked():
     """Gated (sentinel-bin) probe ranks must contribute NOTHING on the
-    Pallas kernel path. Fully-sentinel query blocks get no work item,
-    so the kernel never writes their output rows — on real TPU those
-    rows are uninitialized VMEM whose garbage (pre-fix) WON the
-    cross-probe merge (bench 100k x 300 auto-probes read recall 0.0 at
-    Q=16k). The epilogue now masks each rank by its gate status, making
-    the result identical to running only the live ranks."""
+    kernel path. No work item owns a sentinel query row, so the kernel
+    never writes it; on the card that memory is uninitialized, and
+    garbage there would win the cross-probe merge. The wrapper masks
+    rows without a real bin, making the result identical to running
+    only the live ranks."""
     rng = np.random.default_rng(11)
     n, d, k, q_n = 3000, 32, 16, 192
     x = rng.normal(size=(n, d)).astype(np.float32)
@@ -228,13 +238,12 @@ def test_pallas_gated_sentinel_ranks_masked():
     probes_gated = jnp.asarray(np.concatenate([near[:, :1], sent], axis=1))
     probes_mixed = jnp.asarray(np.concatenate([near[:, :1], half], axis=1))
 
-    d1, i1 = binned.binned_topk_pallas(
-        q, cents, 1, layout, top_k=8, probes=probes_live,
-        q_blk=64, r_blk=256, chunk=128,
+    kw = dict(top_k=8, q_blk=32, engine="pallas", interpret=True)
+    d1, i1 = binned.binned_topk_fused(
+        q, cents, 1, layout, probes=probes_live, **kw
     )
-    d2, i2 = binned.binned_topk_pallas(
-        q, cents, 2, layout, top_k=8, probes=probes_gated,
-        q_blk=64, r_blk=256, chunk=128,
+    d2, i2 = binned.binned_topk_fused(
+        q, cents, 2, layout, probes=probes_gated, **kw
     )
     np.testing.assert_array_equal(np.asarray(i1), np.asarray(i2))
     np.testing.assert_allclose(
@@ -242,9 +251,8 @@ def test_pallas_gated_sentinel_ranks_masked():
     )
 
     # mixed rank == the same probes evaluated by the XLA scan path
-    d3, i3 = binned.binned_topk_pallas(
-        q, cents, 2, layout, top_k=8, probes=probes_mixed,
-        q_blk=64, r_blk=256, chunk=128,
+    d3, i3 = binned.binned_topk_fused(
+        q, cents, 2, layout, probes=probes_mixed, **kw
     )
     d4, i4 = binned.binned_topk_shared(
         q, cents, 2, layout, top_k=8, probes=probes_mixed
@@ -257,7 +265,7 @@ def test_pallas_gated_sentinel_ranks_masked():
 
 def test_merge_tournament_matches_sort_path():
     """w = p*k > 64 routes through the batched pairwise rank-select
-    tournament (VERDICT r4 #5); outputs must be BIT-identical to the
+    tournament; outputs must be BIT-identical to the
     flat topk_smallest path including tie order, for both dedup modes
     and odd rank counts."""
     import jax.numpy as jnp

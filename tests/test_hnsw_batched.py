@@ -9,7 +9,7 @@ from vers_tpu.ops.hnsw_build import draw_insertion_layers
 from vers_tpu.utils.harness import recall_at_k
 
 # heavy tier (wave builds / shard_map surfaces / subprocess dryruns):
-# skipped by `make test`, run by `make test-all` (VERDICT r3 #7)
+# skipped by `make test`, run by `make test-all`
 pytestmark = pytest.mark.slow
 
 
@@ -311,7 +311,7 @@ def test_insert_inline_build_recall(corpus):
 
 
 def test_device_add_no_materialization(corpus):
-    """VERDICT r2 #4: `add` on a wave-built index must patch the pending
+    """`add` on a wave-built index must patch the pending
     arrays + device cache in place — no layer-dict materialization, no
     cache invalidation."""
     rng = np.random.default_rng(33)

@@ -21,8 +21,8 @@ def test_partial_sums_matches_numpy(rng):
     ref_sums = np.zeros((4, 6), np.float32)
     np.add.at(ref_sums, assign, x)
     ref_counts = np.bincount(assign, minlength=4)
-    # the Lloyd pass runs its matmuls in bf16 (full MXU rate, f32
-    # accumulation) — sums/cost are approximate by design
+    # the Lloyd pass runs its matmuls at reduced precision (bf16 sums,
+    # f32 accumulation) — sums/cost are approximate by design
     np.testing.assert_allclose(np.asarray(sums), ref_sums, rtol=2e-2, atol=2e-2)
     np.testing.assert_array_equal(np.asarray(counts), ref_counts)
     np.testing.assert_allclose(float(cost), d2.min(1).sum(), rtol=1e-2)

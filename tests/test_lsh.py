@@ -181,7 +181,7 @@ def test_batched_deficit_emulation_matches_parity_recall():
 
 
 def test_deep_degenerate_tree_codec_and_query(tmp_path):
-    """A 5000-deep single-chain tree (VERDICT r2 #6): the iterative
+    """A 5000-deep single-chain tree: the iterative
     writer/parser must roundtrip it byte-identically with the default
     recursion limit untouched, and the parity query path must descend
     it without recursing."""

@@ -7,7 +7,6 @@ from vers_tpu.ops.distance import (
     pairwise_sq_euclidean,
 )
 from vers_tpu.ops.topk import fused_scan_topk, topk_smallest
-from vers_tpu.ops.pallas_topk import pallas_distance_topk
 
 
 def _np_sq_euclidean(q, x):
@@ -72,18 +71,3 @@ def test_fused_scan_topk_k_exceeds_valid(rng):
     idx = np.asarray(idx)
     assert (idx[:, 3:] == -1).all()
     assert np.isinf(np.asarray(dists)[:, 3:]).all()
-
-
-def test_pallas_kernel_matches_xla_interpret(rng):
-    """Pallas kernel correctness via interpret mode on CPU."""
-    n, d, q_n, k = 300, 24, 17, 8
-    x = rng.normal(size=(384, d)).astype(np.float32)
-    q = rng.normal(size=(q_n, d)).astype(np.float32)
-    pd, pi = pallas_distance_topk(
-        jnp.asarray(q), jnp.asarray(x), n, k,
-        query_tile=8, chunk_size=128, interpret=True,
-    )
-    xd, xi = fused_scan_topk(jnp.asarray(q), jnp.asarray(x), n, k)
-    np.testing.assert_allclose(np.asarray(pd), np.asarray(xd), rtol=1e-4, atol=1e-5)
-    for r in range(q_n):
-        assert set(np.asarray(pi)[r]) == set(np.asarray(xi)[r])

@@ -1,6 +1,5 @@
 """PartitionedANNIndex on the 8-virtual-device CPU mesh: one forest per
-shard (capacity scale-out), queries replicated, all_gather top-k merge.
-VERDICT r2 item #1 ("do LSH the same way")."""
+shard (capacity scale-out), queries replicated, all_gather top-k merge."""
 
 import numpy as np
 import jax
@@ -12,7 +11,7 @@ from vers_tpu.parallel.mesh import SHARD_AXIS, make_mesh
 from vers_tpu.utils.harness import exhaustive_batch, recall_at_k
 
 # heavy tier (wave builds / shard_map surfaces / subprocess dryruns):
-# skipped by `make test`, run by `make test-all` (VERDICT r3 #7)
+# skipped by `make test`, run by `make test-all`
 pytestmark = pytest.mark.slow
 
 
@@ -39,7 +38,7 @@ def built(mesh, corpus):
 def test_capacity_partitioned(built, mesh, corpus):
     cache = built._ensure_device_cache()
     n_shards = mesh.shape[SHARD_AXIS]
-    # shared-corpus layout (VERDICT r4 #1): each chip holds its ~n/S
+    # shared-corpus layout: each chip holds its ~n/S
     # corpus rows exactly ONCE (128-row padded), NOT stacked x T trees
     assert cache["pern"] <= -(-corpus.shape[0] // n_shards // 128) * 128
     shard_shapes = {s.data.shape for s in cache["corpus"].addressable_shards}

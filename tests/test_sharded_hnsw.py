@@ -12,7 +12,7 @@ from vers_tpu.parallel.mesh import make_mesh
 from vers_tpu.utils.harness import exhaustive_batch, recall_at_k
 
 # heavy tier (wave builds / shard_map surfaces / subprocess dryruns):
-# skipped by `make test`, run by `make test-all` (VERDICT r3 #7)
+# skipped by `make test`, run by `make test-all`
 pytestmark = pytest.mark.slow
 
 

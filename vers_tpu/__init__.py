@@ -1,22 +1,22 @@
-"""vers_tpu — a TPU-native vector index & search engine.
+"""vers_tpu — a vector index & search engine in JAX, run on NVIDIA GPUs.
 
 A from-scratch rebuild of the capabilities of `ashrielbrian/vers` (a Rust
 in-memory vector database with IVFFlat / LSH (RP-forest) / HNSW indexes,
-see reference `vers/src/lib.rs`) designed TPU-first:
+see reference `vers/src/lib.rs`) designed for an accelerator:
 
 - embeddings live as padded ``(n, d)`` device arrays,
-- all distance work is batched matmuls on the MXU (XLA) with a fused
-  Pallas distance+top-k kernel on the hot path,
+- all distance work is batched matmuls (XLA), with a Pallas packed-scan
+  kernel (Triton route) on the IVF and forest hot path,
 - k-means build is jitted Lloyd iterations (``lax.while_loop``),
 - the RP-forest is level-synchronous batched hyperplane projections,
 - HNSW queries run as a batched beam scan over a padded adjacency matrix,
 - multi-chip scale-out uses ``jax.sharding.Mesh`` + ``shard_map`` with
-  ``psum`` / ``all_gather`` collectives over ICI.
+  ``psum`` / ``all_gather`` collectives between cards.
 
 The public API mirrors the reference's ``Index`` trait
 (`vers/src/indexes/base.rs:27-59`): ``add``, ``search_approximate``,
-``save_index``, ``load_index`` — plus batched variants that are the TPU
-throughput path. On-disk formats are bincode-1.3-compatible with the
+``save_index``, ``load_index`` — plus batched variants that are the
+device throughput path. On-disk formats are bincode-1.3-compatible with the
 reference so index files interoperate.
 """
 

@@ -1,13 +1,13 @@
 """The ``Index`` protocol — the reference's trait surface
-(`vers/src/indexes/base.rs:27-59`) plus the batched TPU entry points.
+(`vers/src/indexes/base.rs:27-59`) plus the batched device entry points.
 
 Reference API (kept verbatim):
   - ``add(embedding, vec_id)``
   - ``search_approximate(query, top_k) -> [(id, distance), ...]``
   - ``save_index(path)`` / ``load_index(path)``
 
-TPU additions (the throughput path — single-query search cannot feed
-an MXU):
+Batched additions (the throughput path — single-query search cannot
+fill an accelerator):
   - ``search_batch(queries, top_k) -> SearchResult`` over (Q, d).
 
 Persistence is bincode-1.3-compatible with the reference

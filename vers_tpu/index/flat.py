@@ -1,11 +1,10 @@
-"""Exact brute-force index — the TPU promotion of the reference's
-``search_exhaustive`` baseline (`vers/src/utils.rs:68-82`) to a
-first-class index.
+"""Exact brute-force index — the reference's ``search_exhaustive``
+baseline (`vers/src/utils.rs:68-82`) promoted to a first-class index.
 
-On TPU, exact search over ~1M vectors is a single fused
-distance-matmul + streaming top-k scan and is the parity anchor every
-approximate index is measured against. This is the "minimum end-to-end
-slice" of SURVEY.md §7.
+Exact search over ~1M vectors is a single fused distance-matmul +
+streaming top-k scan (`ops/topk.fused_scan_topk`) and is the parity
+anchor every approximate index is measured against. This is the
+"minimum end-to-end slice" of SURVEY.md §7.
 """
 
 from __future__ import annotations
@@ -20,7 +19,7 @@ from vers_tpu.core import VectorStore, as_query_matrix
 from vers_tpu.index.base import Index
 from vers_tpu.io.bincode import Reader, Writer
 from vers_tpu.models.candidates import SearchResult
-from vers_tpu.ops.pallas_topk import distance_topk
+from vers_tpu.ops.topk import fused_scan_topk
 
 
 class FlatIndex(Index):
@@ -58,39 +57,17 @@ class FlatIndex(Index):
         exactly top_k columns — when the corpus is smaller than top_k
         the tail is (inf, -1) padded, matching the other indexes'
         device-path contract. No host transfer — the throughput path
-        for pipelined serving.
-
-        Engine selected by ``config.engine``: "auto" (= "exact":
-        Pallas fused scan on TPU, XLA fallback elsewhere) | "exact" |
-        "approx" | "bucket" (see FlatConfig)."""
-        import jax
-
+        for pipelined serving."""
         queries = as_query_matrix(queries)
-        n = self._store.count
         k_eff = max(1, min(top_k, self._store.capacity))
-        engine = self.config.engine
-        if engine == "bucket":
-            from vers_tpu.ops.pallas_bucket import bucket_scan_topk
-
-            dists, rows = bucket_scan_topk(
-                queries,
-                self._store.data,
-                n,
-                k_eff,
-                metric=self.config.metric,
-                rescore=self.config.bucket_rescore,
-                interpret=jax.default_backend() != "tpu",
-            )
-        else:
-            dists, rows = distance_topk(
-                queries,
-                self._store.data,
-                n,
-                k_eff,
-                metric=self.config.metric,
-                chunk_size=self.config.chunk_size,
-                force="approx" if engine == "approx" else None,
-            )
+        dists, rows = fused_scan_topk(
+            queries,
+            self._store.data,
+            self._store.count,
+            k_eff,
+            metric=self.config.metric,
+            chunk_size=self.config.chunk_size,
+        )
         if k_eff < top_k:
             pad = top_k - k_eff
             dists = jnp.pad(dists, ((0, 0), (0, pad)), constant_values=jnp.inf)

@@ -1,4 +1,4 @@
-"""RP-forest index ("LSH" in the reference) — TPU-native rebuild of
+"""RP-forest index ("LSH" in the reference) — JAX rebuild of
 `vers/src/indexes/lsh.rs`.
 
 Build: level-synchronous batched hyperplane splitting on device
@@ -45,13 +45,13 @@ from vers_tpu.core import (
     deduplicate,
     device_id_map,
     round_up,
-    to_device,
 )
+from vers_tpu.engine import resolve_engine
 from vers_tpu.index.base import Index
 from vers_tpu.io.bincode import Reader, Writer
 from vers_tpu.models.candidates import SearchResult
 from vers_tpu.ops import rpforest
-from vers_tpu.ops.pallas_topk import MAX_PALLAS_K
+from vers_tpu.ops.binned import kernel_q_blk
 
 
 class _Tree:
@@ -118,7 +118,7 @@ class ANNIndex(Index):
         builder: cumsum slots, `ops/rpforest.build_tree`; host inserts:
         next-free `_alloc_inner`), so level l's live rows are
         0..max(split_l)+1. The dense (T, L, TC, d) layout this replaces
-        was ~95% padding at 1M scale (2.2GB @ 8 trees; HBM OOM @ 16)."""
+        was ~95% padding at 1M scale (2.2GB @ 8 trees)."""
         T = len(self._trees)
         L = max(t.coeff.shape[0] for t in self._trees)
         SC = max(t.split.shape[1] for t in self._trees)
@@ -164,39 +164,33 @@ class ANNIndex(Index):
             return self._shared
         from vers_tpu.ops.forest_shared import shared_tree_tables
 
-        corpus_pad = xx = None
+        corpus = None
         if self._shared is not None:
-            corpus_pad = self._shared["corpus_pad"]
-            xx = self._shared["xx"]
+            corpus = self._shared["corpus"]
         t = shared_tree_tables(
             [tr.leaf_of_vec for tr in self._trees],
             [tr.num_buckets for tr in self._trees],
             r_blk,
         )
-        if corpus_pad is None:
-            n, d = self._values.shape
+        if corpus is None:
+            n = self._values.shape[0]
             n_pad = round_up(max(n, 1), 128)
-            d_pad = round_up(d, 128)
-            corpus_pad = to_device(
-                np.pad(self._values, ((0, n_pad - n), (0, d_pad - d)))
+            corpus = jax.device_put(
+                np.pad(self._values, ((0, n_pad - n), (0, 0)))
             )
-            xx = jnp.sum(corpus_pad.astype(jnp.float32) ** 2, axis=1)
         coeff_flat, const_flat, cbase, splits, buckets = (
             self._flat_descent_tables()
         )
         self._shared = dict(
             r_blk=r_blk,
-            corpus_pad=corpus_pad,
-            xx=xx,
-            coeffs=to_device(coeff_flat),
+            corpus=corpus,
+            coeffs=jax.device_put(coeff_flat),
             consts=jnp.asarray(const_flat),
             cbase=jnp.asarray(cbase),
             splits=jnp.asarray(splits),
             buckets=jnp.asarray(buckets),
             offsets=jnp.asarray(t["offsets"]),
             sizes_dev=jnp.asarray(t["sizes"].astype(np.int32)),
-            src=jnp.asarray(t["src"]),
-            rbin=jnp.asarray(t["rbin"]),
             g_first=jnp.asarray(t["g_first"]),
             g_rstart=jnp.asarray(t["g_rstart"]),
             order=jnp.asarray(t["order"]),
@@ -228,7 +222,7 @@ class ANNIndex(Index):
         dedup_vecs, dedup_ids = deduplicate(vectors, np.asarray(vector_ids))
         n, d = dedup_vecs.shape
         n_pad = round_up(max(n, 1), 128)
-        data = to_device(np.pad(dedup_vecs, ((0, n_pad - n), (0, 0))))
+        data = jax.device_put(np.pad(dedup_vecs, ((0, n_pad - n), (0, 0))))
         max_depth = rpforest.depth_bound(n, max_size)
         key = jax.random.PRNGKey(config.seed)
         trees = []
@@ -386,7 +380,7 @@ class ANNIndex(Index):
 
         n, d = self._values.shape
         n_pad = round_up(max(n, 1), 128)
-        data = to_device(np.pad(self._values, ((0, n_pad - n), (0, 0))))
+        data = jax.device_put(np.pad(self._values, ((0, n_pad - n), (0, 0))))
         max_depth = rpf.depth_bound(n, self.max_node_size)
         key = jax.random.PRNGKey(self.config.seed + 1)
         for t in sorted(self._dirty_trees):
@@ -496,48 +490,26 @@ class ANNIndex(Index):
             depth = max(depth, adaptive_probe_depth(sizes, top_k))
         return min(depth, 8)
 
-    def _shared_engine(self, top_k: int) -> str:
-        """Engine rule for the shared-corpus path (shared with the
-        sharded serving layer): Pallas packed scan on TPU for small k,
-        XLA fused scan otherwise."""
-        engine = self.config.engine
-        if engine == "auto":
-            engine = (
-                "pallas"
-                if jax.default_backend() == "tpu" and top_k <= MAX_PALLAS_K
-                else "xla"
-            )
-        return engine
-
-    def _shared_plan(self, q_n: int, top_k: int, n_probes: int,
-                     engine: str):
+    def _shared_plan(self, q_n: int, top_k: int, engine: str):
         """Shared-corpus device state + static tile plan for a
         per-program query count ``q_n`` (the query-sharded layer passes
         its PER-CHIP count, `parallel/lsh.ShardedANNIndex`). Returns
         (shared state dict, statics dict) for
-        `ops.forest_shared.forest_search_shared_{pallas,xla}`."""
+        `ops.forest_shared.forest_search_shared`.
+
+        The kernel engine groups bins up to the largest leaf and tiles
+        queries by `binned.kernel_q_blk`; the XLA engine re-derives the
+        stacked path's forest plan for one tree spanning all n rows."""
         max_bin = self._max_bin()
         n = self._values.shape[0]
         n_pad = round_up(max(n, 1), 128)
         if engine == "pallas":
-            chunk = 1024
-            r_blk = round_up(max(1024, max_bin, top_k), chunk)
-            sh = self._ensure_shared(r_blk)
-            q_blk = 128 if jax.default_backend() == "tpu" else 64
-            q_pad_rank = round_up(q_n, q_blk)
-            # p>1 uses the combined (query, rank) pair sort per tree
-            # (ops/binned._pallas_fused_core): blocks scale with p
-            blocks = (
-                n_probes * q_pad_rank if n_probes > 1 else q_pad_rank
-            ) // q_blk
-            w_rank = blocks + sh["g_max"] + 1
+            sh = self._ensure_shared(max_bin)
+            q_blk = kernel_q_blk(q_n, sh["g_max"])
             return sh, dict(
-                q_blk=q_blk, r_blk=r_blk, chunk=chunk, w_rank=w_rank,
-                q_pad_rank=q_pad_rank,
-                interpret=jax.default_backend() != "tpu",
+                q_blk=q_blk, r_blk=max_bin, engine=engine,
+                w_rank=(q_n + q_blk - 1) // q_blk + sh["g_max"],
             )
-        # per-tree tile targets (the stacked path's forest plan,
-        # re-derived for one tree spanning all n rows)
         r_target = max(max_bin, top_k, min(8192, max(1024, n // 16)))
         r_blk = min(round_up(r_target, 128), n_pad)
         sh = self._ensure_shared(r_blk)
@@ -546,10 +518,7 @@ class ANNIndex(Index):
             round_up(q_n, 8),
         )
         w_rank = (q_n + q_blk - 1) // q_blk + sh["g_max"]
-        return sh, dict(
-            q_blk=q_blk, r_blk=r_blk, w_rank=w_rank,
-            use_approx=jax.default_backend() == "tpu",
-        )
+        return sh, dict(q_blk=q_blk, r_blk=r_blk, w_rank=w_rank, engine=engine)
 
     def _search_batch_internal(
         self, queries, top_k: int, probes_per_tree: Optional[int] = None
@@ -559,44 +528,36 @@ class ANNIndex(Index):
         (lax.scan — one tree's gathered view live at a time) + dedup
         merge, ONE device dispatch. Memory parity with the reference
         (`lsh.rs:44,53`): the corpus lives on device exactly once."""
+        from vers_tpu.ops.forest_shared import forest_search_shared
+
         self._rebuild_dirty()
         qdev = as_query_matrix(queries)
-        q_n = qdev.shape[0]
+        n_probes, deficit_k = self._probe_plan(top_k, probes_per_tree)
+        sh, plan = self._shared_plan(
+            qdev.shape[0], top_k, resolve_engine(self.config.engine, top_k)
+        )
+        return forest_search_shared(
+            qdev, *self.shared_operands(sh),
+            n_probes=n_probes, num_bins=sh["num_bins"], top_k=top_k,
+            deficit_k=deficit_k, **plan,
+        )
+
+    @staticmethod
+    def shared_operands(sh: dict) -> tuple:
+        """`forest_search_shared`'s array operands after the queries."""
+        return (
+            sh["coeffs"], sh["consts"], sh["cbase"], sh["splits"],
+            sh["buckets"], sh["offsets"], sh["sizes_dev"], sh["corpus"],
+            sh["order"], sh["rbin_sorted"], sh["g_first"], sh["g_rstart"],
+        )
+
+    def _probe_plan(self, top_k: int, probes_per_tree: Optional[int]):
+        """(probes per tree, deficit gate k): ``None`` emulates the
+        reference's deficit rule at the size-aware depth."""
         if probes_per_tree is None:
             n_probes = self._auto_probes(top_k)
-            deficit_k = top_k if n_probes > 1 else 0
-        else:
-            n_probes = max(1, probes_per_tree)
-            deficit_k = 0
-        engine = self._shared_engine(top_k)
-        sh, plan = self._shared_plan(q_n, top_k, n_probes, engine)
-        if engine == "pallas":
-            from vers_tpu.ops.forest_shared import (
-                forest_search_shared_pallas,
-            )
-
-            dists, internal = forest_search_shared_pallas(
-                qdev, sh["coeffs"], sh["consts"], sh["cbase"],
-                sh["splits"], sh["buckets"], sh["offsets"],
-                sh["sizes_dev"],
-                sh["corpus_pad"], sh["xx"], sh["src"], sh["rbin"],
-                sh["g_first"],
-                n_probes=n_probes, num_bins=sh["num_bins"], top_k=top_k,
-                deficit_k=deficit_k, **plan,
-            )
-        else:
-            from vers_tpu.ops.forest_shared import forest_search_shared_xla
-
-            dists, internal = forest_search_shared_xla(
-                qdev, sh["coeffs"], sh["consts"], sh["cbase"],
-                sh["splits"], sh["buckets"], sh["offsets"],
-                sh["sizes_dev"],
-                sh["corpus_pad"], sh["order"], sh["rbin_sorted"],
-                sh["g_first"], sh["g_rstart"],
-                n_probes=n_probes, num_bins=sh["num_bins"], top_k=top_k,
-                deficit_k=deficit_k, **plan,
-            )
-        return dists, internal
+            return n_probes, (top_k if n_probes > 1 else 0)
+        return max(1, probes_per_tree), 0
 
     # -- single-query parity path (deficit/backup rule) ------------------
 

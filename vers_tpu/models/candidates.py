@@ -1,7 +1,7 @@
 """Candidate / result data models.
 
 Host-side mirrors of the reference's heap types
-(`vers/src/indexes/models.rs:9-153`). On TPU there are no heaps — the
+(`vers/src/indexes/models.rs:9-153`). On the device there are no heaps — the
 device-side equivalents are fixed-size sorted (k,) arrays produced by
 ``lax.top_k`` — but these types are still needed for:
 

@@ -2,7 +2,7 @@
 //
 // The reference's runtime is entirely native (Rust): its dataset loader
 // (`vers/src/utils.rs:7-66`) and bincode persistence
-// (`vers/src/indexes/base.rs:31-58`) run at native speed. The TPU
+// (`vers/src/indexes/base.rs:31-58`) run at native speed. The JAX
 // rebuild keeps the *compute* path on-device (JAX/XLA/Pallas), and this
 // library provides the native equivalents of the host-side runtime:
 //

@@ -1,7 +1,8 @@
-"""Batched greedy beam search over a padded adjacency matrix — the TPU
-re-expression of HNSW's layer search (`vers/src/indexes/hnsw.rs:242-307`).
+"""Batched greedy beam search over a padded adjacency matrix — the
+batched re-expression of HNSW's layer search
+(`vers/src/indexes/hnsw.rs:242-307`).
 
-Graph pointer-chasing (BFS queue + heap + visited set) is TPU-hostile,
+Graph pointer-chasing (BFS queue + heap + visited set) does not batch,
 so a layer search becomes an iterative frontier expansion over
 rectangles:
 
@@ -66,7 +67,7 @@ def beam_search_layer(
     e = max(1, min(expand_per_step, ef))
 
     # navigation runs in the vector table's dtype: a bf16/int8 table
-    # cuts the HBM traffic of the (Q, m, d) gathers dominating this loop
+    # cuts the memory traffic of the (Q, m, d) gathers in this loop
     is_int8 = vecs.dtype == jnp.int8
     q_nav = queries.astype(jnp.bfloat16 if is_int8 else vecs.dtype)
 
@@ -236,18 +237,16 @@ def full_descent_scan(
 ):
     """Query descent with BRUTE-FORCE ROUTING: instead of greedy beam
     routing through layers L-2..1 (the reference's descent,
-    `hnsw.rs:516-541`), one MXU matmul scan over the layer-1 node
+    `hnsw.rs:516-541`), one matmul scan over the layer-1 node
     subset finds the exact (within bf16) top-``seeds`` entry points,
     which seed the layer-0 beam directly.
 
-    Rationale (TPU-first): upper HNSW layers exist only to cheaply
-    locate an entry point. Every node of every layer >= 1 is also a
-    member of layer 1 (HNSW nesting invariant), so scanning layer 1
-    strictly dominates any routing descent — and on TPU that scan is
-    a dense bf16 matmul over ~n/(2M) rows (MXU, ~free) while beam
-    routing is a serial chain of random row gathers (row-op-bound,
-    the measured bottleneck: ~15.5 ns/row regardless of dtype). The
-    multi-seed start also warms the layer-0 beam with ``seeds`` good
+    Rationale: upper HNSW layers exist only to cheaply locate an entry
+    point. Every node of every layer >= 1 is also a member of layer 1
+    (HNSW nesting invariant), so scanning layer 1 strictly dominates
+    any routing descent — and that scan is one dense bf16 matmul over
+    ~n/(2M) rows while beam routing is a serial chain of random row
+    gathers. The multi-seed start also warms the layer-0 beam with ``seeds`` good
     candidates instead of one, cutting its step count.
 
     Returns (d (Q, top_k), ids (Q, top_k))."""
@@ -301,7 +300,7 @@ def insertion_candidates(
     has_scales: bool = False,
 ):
     """Device-side insertion descent for an incremental ``add`` on a
-    device-built graph (the TPU re-expression of `_add_node`'s search
+    device-built graph (the batched re-expression of `_add_node`'s search
     phase, `hnsw.rs:348-416`): beams route from the TOP layer down
     (insertion searches the top layer too, unlike queries), and every
     layer <= ``l_ins`` emits its f32-rescored efc-wide candidate set

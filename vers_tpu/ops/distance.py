@@ -1,9 +1,9 @@
 """Batched distance kernels (XLA path).
 
-TPU-native replacement for the reference's scalar + hand-SIMD distance
+Batched replacement for the reference's scalar + hand-SIMD distance
 functions (`vers/src/indexes/base.rs:119-293`): instead of one pair at a
 time on 64-wide SIMD lanes, distances are computed for whole query ×
-corpus blocks as matmuls on the 128×128 MXU.
+corpus blocks as matmuls.
 
 Metric semantics match the reference exactly:
 
@@ -18,13 +18,13 @@ from __future__ import annotations
 import jax
 import jax.numpy as jnp
 
-# f32 matmuls on TPU default to reduced precision; distance parity with
-# the scalar reference wants full f32 accumulation.
+# f32 matmuls on the GPU default to reduced precision (TF32); distance
+# parity with the scalar reference wants full f32.
 _HIGHEST = jax.lax.Precision.HIGHEST
 
 
 def pairwise_dot(q: jnp.ndarray, x: jnp.ndarray, precision=_HIGHEST) -> jnp.ndarray:
-    """(Q, d) x (N, d) -> (Q, N) dot products on the MXU."""
+    """(Q, d) x (N, d) -> (Q, N) dot products as one matmul."""
     return jax.lax.dot_general(
         q,
         x,
@@ -38,7 +38,7 @@ def pairwise_sq_euclidean(q: jnp.ndarray, x: jnp.ndarray, precision=_HIGHEST) ->
     """(Q, d) x (N, d) -> (Q, N) squared euclidean distances.
 
     Uses the |q|^2 + |x|^2 - 2 q.x expansion so the O(Q*N*d) work is a
-    single MXU matmul; clamped at 0 against cancellation.
+    single matmul; clamped at 0 against cancellation.
     """
     qq = jnp.sum(q.astype(jnp.float32) ** 2, axis=-1, keepdims=True)
     xx = jnp.sum(x.astype(jnp.float32) ** 2, axis=-1)

@@ -1,36 +1,27 @@
 """Shared-corpus RP-forest search — single-chip memory parity with the
 reference.
 
-The stacked forest layout (removed in r5; the pre-r5 device layout)
-held one bin-major CORPUS COPY PER TREE, and the Pallas path regrouped
-that into a second padded copy — ~2·T corpus footprints. The Rust
-reference stores the corpus ONCE and trees hold only ids
-(`vers/src/indexes/lsh.rs:44,53`), so its 1M x 300 8-tree forest lives
-in ~1.2GB where the stacked device layout needed ~20GB: structurally
-impossible on a 16GB chip. Every layer (single-chip `index/lsh`,
-query-sharded `parallel/lsh`, corpus-partitioned
-`parallel/lsh_partitioned`) now routes through this module.
+The Rust reference stores the corpus ONCE and trees hold only ids
+(`vers/src/indexes/lsh.rs:44,53`). A layout with one bin-major corpus
+copy per tree would need ~T corpus footprints (~10GB at 1M x 300 x 8
+trees) where the reference needs ~1.2GB. Every layer (single-chip
+`index/lsh`, query-sharded `parallel/lsh`, corpus-partitioned
+`parallel/lsh_partitioned`) routes through this module.
 
 This module keeps ONE device corpus and makes every per-tree table an
 INDEX table:
 
-- per tree: a group-major padded source map ``src`` (G·r_blk,) int32 of
-  ORIGINAL corpus rows (leaves are contiguous spans of the tree's sorted
-  order, so the map is built from span copies), plus the matching padded
-  bin ids. ``src`` doubles as the result id map (padded position ->
-  original row), replacing ``sorted_to_orig``.
+- per tree: ``order`` maps the tree's leaf-sorted positions to ORIGINAL
+  corpus rows, with the matching bin id per position and static group
+  tables over the tree's leaves;
 - search is ONE dispatch: multiprobe descent through every tree, then a
-  ``lax.scan`` over trees whose body (a) gathers the tree's padded
-  corpus view from the shared corpus (one XLA gather — the only extra
-  cost vs the stacked layout), (b) runs the same packed-scan engine
-  (`ops/binned._pallas_fused_core` / `ops/binned.fused_binned_search`)
-  over it, and (c) folds the tree's top-k into the running answer with
-  the id-dedup merge. The scan guarantees only ONE tree's gathered view
-  is live at a time, so peak HBM is ~corpus + one padded tree
-  (~2.5GB at 1M x 300) regardless of tree count.
-
-Results are identical to the stacked path (exact distances, same probed
-leaves; top-k tie order may differ).
+  ``lax.scan`` over trees whose body (a) gathers the tree's bin-major
+  corpus view from the shared corpus (one XLA gather), (b) runs the
+  packed-scan engine (`ops/binned.fused_binned_search`) over it, and
+  (c) folds the tree's top-k into the running answer with the id-dedup
+  merge. The scan keeps only ONE tree's gathered view live at a time,
+  so peak device memory is ~corpus + one tree view regardless of tree
+  count.
 """
 
 from __future__ import annotations
@@ -43,11 +34,7 @@ import jax
 import jax.numpy as jnp
 
 from vers_tpu.core import round_up
-from vers_tpu.ops.binned import (
-    _pallas_fused_core,
-    fused_binned_search,
-    merge_probe_results,
-)
+from vers_tpu.ops.binned import fused_binned_search, merge_probe_results
 from vers_tpu.ops import rpforest
 
 
@@ -75,8 +62,6 @@ def shared_tree_tables(
     """Host-side per-tree index tables for the shared-corpus search.
 
     Returns dict with stacked arrays (T leading axis; -1 padding):
-      src      (T, G_max*r_blk) original corpus row per padded slot
-      rbin     (T, G_max*r_blk) GLOBAL bin id per padded slot
       g_first  (T, G_max+1)     global-bin group boundaries
       order    (T, n_pad)       tree-sorted position -> original row
       rbin_sorted (T, n_pad)    global bin per tree-sorted position
@@ -104,8 +89,6 @@ def shared_tree_tables(
     g_max = max((len(f) - 1 for f in firsts), default=1)
     g_total = sum(len(f) - 1 for f in firsts)
 
-    src = np.full((T, g_max * r_blk), -1, np.int32)
-    rbin = np.full((T, g_max * r_blk), -1, np.int32)
     g_first = np.zeros((T, g_max + 1), np.int64)
     g_rstart = np.zeros((T, g_max), np.int64)
     order_pad = np.full((T, n_pad), -1, np.int32)
@@ -121,17 +104,10 @@ def shared_tree_tables(
         rbin_sorted[t, :n] = lov_sorted
         G = len(first) - 1
         for g in range(G):
-            lo = int(starts[first[g]]) if first[g] < kts[t] else n
-            hi = int(starts[first[g + 1]]) if first[g + 1] < kts[t] else n
-            span = min(hi - lo, r_blk)
-            src[t, g * r_blk : g * r_blk + span] = order[lo : lo + span]
-            rbin[t, g * r_blk : g * r_blk + span] = lov_sorted[lo : lo + span]
-            g_rstart[t, g] = lo
+            g_rstart[t, g] = int(starts[first[g]]) if first[g] < kts[t] else n
         g_first[t, : G + 1] = first + offsets[t]
         g_first[t, G + 1 :] = g_first[t, G]  # pad: zero-query groups
     return dict(
-        src=src,
-        rbin=rbin,
         g_first=g_first.astype(np.int32),
         g_rstart=g_rstart.astype(np.int32),
         order=order_pad,
@@ -163,99 +139,15 @@ def _deficit_gate(probes, sizes, num_bins: int, n_probes: int,
 @functools.partial(
     jax.jit,
     static_argnames=(
-        "n_probes", "num_bins", "top_k", "q_blk", "r_blk", "chunk",
-        "w_rank", "q_pad_rank", "interpret", "deficit_k", "kernel_ids",
+        "n_probes", "num_bins", "top_k", "q_blk", "r_blk", "w_rank",
+        "deficit_k", "engine", "interpret",
     ),
 )
-def forest_search_shared_pallas(
+def forest_search_shared(
     queries,        # (Q, d)
     coeff_flat, const_flat, cbase, splits, buckets, offsets,  # packed
     sizes_dev,      # (num_bins,) int32 leaf sizes (deficit gate)
-    corpus_pad,     # (n_pad, d_pad) the ONE corpus copy (cols zero-pad)
-    xx,             # (n_pad,) squared norms
-    src,            # (T, G_max*r_blk) int32
-    rbin_pad,       # (T, G_max*r_blk) int32
-    g_first,        # (T, G_max+1) int32 global-bin boundaries
-    n_probes: int,
-    num_bins: int,
-    top_k: int,
-    q_blk: int,
-    r_blk: int,
-    chunk: int,
-    w_rank: int,
-    q_pad_rank: int,
-    interpret: bool,
-    deficit_k: int = 0,
-    kernel_ids: bool = True,
-):
-    """ONE-dispatch shared-corpus forest query (Pallas engine): descent
-    for all trees, then lax.scan over trees — gather the tree's padded
-    corpus view, run the packed-scan kernel, dedup-merge into the
-    running top-k. Returns (dists (Q, k) f32, original rows (Q, k))."""
-    probes = rpforest.descend_forest_flat(
-        queries, coeff_flat, const_flat, cbase, splits, buckets, offsets,
-        n_probes=n_probes,
-    )
-    if deficit_k:
-        probes = _deficit_gate(probes, sizes_dev, num_bins, n_probes,
-                               deficit_k)
-    T = splits.shape[0]
-    q_n = queries.shape[0]
-    n_pad = corpus_pad.shape[0]
-    probes_t = jnp.transpose(
-        probes.reshape(q_n, T, n_probes), (1, 0, 2)
-    )  # (T, Q, P)
-
-    def body(carry, xs):
-        bd, bi = carry
-        src_t, rb_t, gf_t, pr_t = xs
-        safe = jnp.clip(src_t, 0, n_pad - 1)
-        live = src_t >= 0
-        xp = jnp.where(
-            live[:, None], jnp.take(corpus_pad, safe, axis=0), 0.0
-        )
-        xxp = jnp.where(live, jnp.take(xx, safe), 0.0)
-        td, ti = _pallas_fused_core(
-            queries, pr_t, xp, rb_t[None, :], xxp[None, :], src_t,
-            gf_t[None, :],
-            num_bins=num_bins, nprobe=n_probes, top_k=top_k,
-            q_blk=q_blk, r_blk=r_blk, chunk=chunk, w_rank=w_rank,
-            q_pad_rank=q_pad_rank, metric="sq_euclidean",
-            probes_given=True, interpret=interpret,
-            rank_rows=(0,) * n_probes, g_base=(0,),
-            # one group table per tree -> combined pair sort at p > 1
-            # (callers size w_rank for it); trees overlap, keep dedup
-            combined=n_probes > 1, kernel_ids=kernel_ids,
-        )
-        md, mi = merge_probe_results(
-            jnp.concatenate([bd, td], axis=1),
-            jnp.concatenate([bi, ti], axis=1),
-            top_k,
-        )
-        return (md, mi), None
-
-    init = (
-        jnp.full((q_n, top_k), jnp.inf, jnp.float32),
-        jnp.full((q_n, top_k), -1, jnp.int32),
-    )
-    (bd, bi), _ = jax.lax.scan(
-        body, init, (src, rbin_pad, g_first, probes_t)
-    )
-    return bd, bi
-
-
-@functools.partial(
-    jax.jit,
-    static_argnames=(
-        "n_probes", "num_bins", "top_k", "q_blk", "r_blk", "w_rank",
-        "use_approx", "deficit_k",
-    ),
-)
-def forest_search_shared_xla(
-    queries,
-    coeff_flat, const_flat, cbase, splits, buckets, offsets,
-    sizes_dev,
-    corpus_pad,     # (n_pad, d) the ONE corpus copy
+    corpus,         # (n_pad, d) the ONE corpus copy
     order,          # (T, n_pad) tree-sorted pos -> original row
     rbin_sorted,    # (T, n_pad)
     g_first,        # (T, G_max+1)
@@ -266,12 +158,15 @@ def forest_search_shared_xla(
     q_blk: int,
     r_blk: int,
     w_rank: int,
-    use_approx: bool,
     deficit_k: int = 0,
+    engine: str = "xla",
+    interpret: bool = False,
 ):
-    """Shared-corpus forest query on the XLA packed scan (non-TPU /
-    large-k engine). Same structure as the Pallas variant; the per-tree
-    gather materialises the tree's bin-major corpus view."""
+    """ONE-dispatch shared-corpus forest query: descent for all trees,
+    then lax.scan over trees — gather the tree's bin-major corpus view,
+    run the packed scan (``engine``/``interpret`` as in
+    `fused_binned_search`), dedup-merge into the running top-k. Returns
+    (dists (Q, k) f32, original rows (Q, k))."""
     probes = rpforest.descend_forest_flat(
         queries, coeff_flat, const_flat, cbase, splits, buckets, offsets,
         n_probes=n_probes,
@@ -281,13 +176,10 @@ def forest_search_shared_xla(
                                deficit_k)
     T = splits.shape[0]
     q_n = queries.shape[0]
-    n_pad, d_pad = corpus_pad.shape
+    n_pad = corpus.shape[0]
     probes_t = jnp.transpose(
         probes.reshape(q_n, T, n_probes), (1, 0, 2)
     )
-    # the scan tiles slice the col-padded corpus; zero-pad the queries
-    # to match (zero columns contribute nothing to the distances)
-    qp = jnp.pad(queries, ((0, 0), (0, d_pad - queries.shape[1])))
 
     def body(carry, xs):
         bd, bi = carry
@@ -295,15 +187,15 @@ def forest_search_shared_xla(
         safe = jnp.clip(order_t, 0, n_pad - 1)
         live = order_t >= 0
         cs_t = jnp.where(
-            live[:, None], jnp.take(corpus_pad, safe, axis=0), 0.0
+            live[:, None], jnp.take(corpus, safe, axis=0), 0.0
         )
         td, ti = fused_binned_search(
-            qp, pr_t, cs_t, rbs_t, order_t,
+            queries, pr_t, cs_t, rbs_t, order_t,
             gf_t[None, :], gr_t[None, :],
             num_bins=num_bins, nprobe=n_probes, top_k=top_k,
             q_blk=q_blk, r_blk=r_blk, w_rank=w_rank,
-            metric="sq_euclidean", use_approx=use_approx,
-            probes_given=True, rank_rows=(0,) * n_probes,
+            metric="sq_euclidean", probes_given=True,
+            engine=engine, interpret=interpret,
         )
         md, mi = merge_probe_results(
             jnp.concatenate([bd, td], axis=1),

@@ -1,16 +1,16 @@
 """Jitted Lloyd k-means — the build kernel behind IVFFlat.
 
-TPU-native re-expression of `vers/src/indexes/ivfflat.rs:18-149`:
+Batched re-expression of `vers/src/indexes/ivfflat.rs:18-149`:
 
 - assignment (`assign_to_clusters`, rayon par_iter over rows) becomes a
   chunked (n, k) distance matmul + argmin,
 - centroid update (`update_centroids`) becomes a one-hot matmul
-  (MXU-friendly segment-sum); empty clusters become zero vectors
+  (a matmul segment-sum); empty clusters become zero vectors
   (parity with `ivfflat.rs:63-67`),
 - the convergence test is bitwise equality of centroid arrays
   (parity with the HashKey comparison, `ivfflat.rs:84-93`),
 - assignment + update are fused in ONE streaming pass over the corpus,
-  so the (n, k) distance matrix never hits HBM whole,
+  so the (n, k) distance matrix never sits in device memory whole,
 - the whole Lloyd loop runs under `lax.while_loop` on-device,
 - random restarts (`build_index`'s num_attempts, `ivfflat.rs:111-121`)
   are vmapped into a batch dimension over centroid sets.
@@ -71,17 +71,21 @@ def partial_sums(
     def step(carry, inp):
         sums, counts, cost = carry
         chunk_idx, chunk = inp
-        # assignment only needs the argmin ranking: bf16 matmul runs at
-        # full MXU rate (the reference's exact-f32 SIMD loop has no
-        # bitwise-parity contract here — k-means is seeded randomly)
+        # assignment only needs the argmin ranking: DEFAULT precision
+        # lets the card use its tensor cores (TF32 on an f32 corpus).
+        # The reference's exact-f32 SIMD loop has no bitwise-parity
+        # contract here — k-means is seeded randomly — and the final
+        # assignment (`assign_clusters`) is exact f32.
         dist = pairwise_sq_euclidean(
             chunk, centroids, precision=jax.lax.Precision.DEFAULT
         )  # (C, k)
         assign = jnp.argmin(dist, axis=1)
         rows = chunk_idx * chunk_size + row_in_chunk
         valid = rows < n_valid
-        # segment-sum as a bf16 one-hot matmul (f32 accumulation): the
-        # (C, k) one-hot in f32 was the build's HBM bottleneck
+        # segment-sum as a bf16 one-hot matmul with f32 accumulation
+        # (half the bytes of an f32 one-hot): the one-hot is exact in
+        # bf16, the rows round to bf16 before they are summed, and the
+        # centroid is a mean over its members
         onehot = (
             (assign[:, None] == jnp.arange(k, dtype=jnp.int32)[None, :])
             & valid[:, None]
@@ -90,6 +94,7 @@ def partial_sums(
             onehot,
             chunk.astype(jnp.bfloat16),
             dimension_numbers=(((0,), (0,)), ((), ())),
+            precision=jax.lax.Precision.DEFAULT,
             preferred_element_type=jnp.float32,
         )
         counts = counts + jnp.sum(onehot.astype(jnp.float32), axis=0)

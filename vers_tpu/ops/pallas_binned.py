@@ -1,305 +1,223 @@
-"""Pallas packed binned scan — the kernel form of `ops/binned.py`'s
-fused search.
+"""Packed binned scan as a Pallas kernel on the Triton route (Hopper).
 
-The XLA `lax.scan` packed scan pays ~1ms of per-step overhead (slice /
-mask / top-k plumbing) regardless of tile size, which dominates the
-actual MXU work ~30:1 at IVF shapes. This kernel replaces the scan with
-a Pallas grid over work items whose tile placement is driven by
-scalar-prefetched block indices:
+The kernel form of `ops/binned.scan_packed`: same work items, same
+outputs. The XLA twin runs the work items as a `lax.scan`, one small
+matmul + mask + top-k + update per step, serially. Here every work item
+is one program, so the items run in parallel across the card's SMs.
 
-- the corpus is laid out **group-major padded**: group g (a run of
-  whole bins packed to <= r_blk rows) occupies rows
-  [g*r_blk, g*r_blk + span_g); every work item's corpus window is then
-  exactly blocks [gb[w]*r_chunks, (gb[w]+1)*r_chunks) of size `chunk`,
-- work items are (query block, group) pairs, block-ALIGNED on the query
-  axis; a group's queries may start mid-block, so a block can be
-  visited by consecutive groups — the kernel keeps a running (q_blk, k)
-  best set in VMEM scratch, initialising on the first visit of a block
-  and flushing on the last (visit runs are consecutive by
-  construction: queries are bin-sorted, groups ascend, and per-rank
-  segments are padded to block multiples so no block straddles ranks),
-- inside one work item the corpus streams through VMEM in `chunk`-row
-  sub-tiles (inner grid dim) exactly like the flat kernel
-  (`ops/pallas_topk.py`), with the same threshold-skip merge.
+A work item is a window of ``q_blk`` bin-sorted query rows that starts
+at ``qstart``. It owns the rows ``[qstart, qend)``: they all lie in one
+group of whole bins, and no other item owns them, so the programs write
+disjoint rows and need no carry between them. The item scans only the
+corpus rows of the bins its owned queries probe (not the whole group), ``chunk`` rows at a time, with the feature axis in
+``bk``-wide K-steps (power-of-two tiles; no padding of d). A
+bin-equality mask keeps each query scored against its own bin only. Each
+chunk folds into a running (q_blk, kp) best set by k extract-min passes
+that merge the chunk's candidates with the carried set; a chunk that
+cannot beat any row's k-th best skips the merge.
 
-Scoring masks by bin equality, so results match `scan_packed` exactly
-(modulo top-k tie order). Distances are f32-exact (HIGHEST matmuls).
+Distances are f32: the dot runs at the precision the caller names, and
+"highest" lowers to Triton's IEEE f32 dot, not TF32. Ties break toward
+the lower sorted-corpus row, as `topk_smallest` does.
 """
 
 from __future__ import annotations
 
 import functools
-from typing import Dict
 
-import numpy as np
 import jax
 import jax.numpy as jnp
 from jax.experimental import pallas as pl
-from jax.experimental.pallas import tpu as pltpu
+from jax.experimental.pallas import triton as plgpu
 
-from vers_tpu.core import round_up
-from vers_tpu.ops.pallas_topk import _merge_topk
+# Largest top_k the kernel serves: the extract-min merge costs k passes
+# per chunk, and the carried best set is (q_blk, next_pow2(k)).
+MAX_KERNEL_K = 128
 
-DEFAULT_Q_BLK = 512
-DEFAULT_CHUNK = 1024
-
-
-def padded_group_layout(layout: Dict, r_blk: int) -> Dict:
-    """Single-table special case of `padded_forest_layout` (IVF:
-    every probe rank shares one group table over all bins)."""
-    return padded_forest_layout(layout, r_blk, [0, layout["num_bins"]])
+_PRECISIONS = {
+    "highest": jax.lax.Precision.HIGHEST,
+    "high": jax.lax.Precision.HIGH,
+    "default": jax.lax.Precision.DEFAULT,
+}
 
 
-def padded_forest_layout(layout: Dict, r_blk: int, bounds) -> Dict:
-    """Group-major padded layout for a stacked multi-tree (forest)
-    layout: per-tree group tables over each tree's bin range
-    [bounds[t], bounds[t+1]), concatenated into one global group list.
-    Returns the padded arrays plus stacked per-tree tables
-    (g_first (T, Gmax+1)) and each tree's global group base."""
-    from vers_tpu.ops.binned import stack_group_tables, static_groups
-
-    cache = layout.setdefault("_padded_forest", {})
-    key = (r_blk, tuple(int(b) for b in bounds))
-    if key in cache:
-        return cache[key]
-    tables = [
-        static_groups(layout, r_blk, int(bounds[t]), int(bounds[t + 1]))
-        for t in range(len(bounds) - 1)
-    ]
-    g_first_stacked, _ = stack_group_tables(tables)
-    g_base = np.concatenate(
-        [[0], np.cumsum([len(r) for _, r in tables])]
-    ).astype(np.int64)
-    n_groups = int(g_base[-1])
-
-    sizes = layout["sizes_host"]
-    starts = layout["starts_host"]
-    k = len(sizes)
-    corpus_dev = layout["corpus_sorted"]
-    n_src = corpus_dev.shape[0]
-    d = corpus_dev.shape[1]
-    d_pad = round_up(d, 128)
-
-    # Build only the (n_groups * r_blk,) source-row map on host (group
-    # tables are k-sized); the corpus itself is regrouped with ONE
-    # device gather. The previous host materialization downloaded and
-    # re-uploaded the whole corpus (~GBs at 1M rows) around a python
-    # per-group copy loop.
-    src = np.full((n_groups * r_blk,), -1, np.int64)
-    g = 0
-    for fi, ri in tables:
-        for j in range(len(ri)):
-            lo = int(ri[j])
-            hi_bin = int(fi[j + 1])
-            hi = int(starts[hi_bin]) if hi_bin < k else (
-                int(starts[-1] + sizes[-1]) if k else 0
-            )
-            span = min(hi - lo, r_blk)
-            src[g * r_blk : g * r_blk + span] = np.arange(lo, lo + span)
-            g += 1
-    srcd = jnp.asarray(src, jnp.int32)
-    safe = jnp.clip(srcd, 0, n_src - 1)
-    live = (srcd >= 0)[:, None]
-    xs = corpus_dev
-    if d_pad != d:
-        xs = jnp.pad(xs, ((0, 0), (0, d_pad - d)))
-    xp = jnp.where(live, jnp.take(xs, safe, axis=0), 0.0)
-    rb = jnp.where(srcd >= 0, jnp.take(layout["rbin"], safe), -1)
-    so = jnp.where(srcd >= 0, jnp.take(layout["sorted_to_orig"], safe), -1)
-    # f32 accumulation (vs the old host path's float64): for the score
-    # -2*q.x + ||x||^2 the norm's low bits are far below the matmul's
-    # own f32 rounding, so rankings are unaffected; documented
-    # deliberate precision trade for keeping the layout device-resident
-    xx = jnp.sum(xp.astype(jnp.float32) ** 2, axis=1)
-    out = dict(
-        corpus=xp,
-        rbin=rb[None, :],
-        s2o=so,
-        xx=xx[None, :],
-        g_first=jnp.asarray(g_first_stacked),
-        g_base=tuple(int(b) for b in g_base[:-1]),
-        n_groups=n_groups,
-        g_max=max(len(r) for _, r in tables),
-        r_blk=r_blk,
-    )
-    cache[key] = out
-    return out
+def next_pow2(x: int) -> int:
+    return 1 << max(int(x) - 1, 0).bit_length()
 
 
-def _workitems_blocks(qcounts, rank_off, g_first, q_blk: int,
-                      w_rank: int, qb_scratch: int, g_base: int = 0):
-    """Block-aligned work items for one probe rank: (qb, gb) int32
-    (w_rank,) arrays. Group g's tiles are the query BLOCKS overlapping
-    its sorted-query span [qlo, qhi); invalid items park on the scratch
-    block. ``g_base`` offsets local group ids into the global padded
-    layout (multi-table/forest case)."""
-    qcum = jnp.concatenate(
-        [jnp.zeros((1,), jnp.int32), jnp.cumsum(qcounts, dtype=jnp.int32)]
-    )
-    qlo = qcum[g_first[:-1]] + rank_off
-    qhi = qcum[g_first[1:]] + rank_off
-    nq = qhi - qlo
-    b0 = qlo // q_blk
-    b1 = jnp.where(nq > 0, (qhi - 1) // q_blk, b0 - 1)
-    tiles = jnp.maximum(b1 - b0 + 1, 0)
-    tcum = jnp.cumsum(tiles)
-    total = tcum[-1] if tiles.shape[0] else jnp.int32(0)
-    w = jnp.arange(w_rank, dtype=jnp.int32)
-    g = jnp.searchsorted(tcum, w, side="right").astype(jnp.int32)
-    g_c = jnp.clip(g, 0, tiles.shape[0] - 1)
-    prev = jnp.where(g_c > 0, tcum[jnp.maximum(g_c - 1, 0)], 0)
-    valid = w < total
-    qb = jnp.where(valid, b0[g_c] + (w - prev), qb_scratch)
-    gb = jnp.where(valid, g_base + g_c, 0)
-    return qb, gb
-
-
-def _kernel(qb_ref, gb_ref, q_ref, qbin_ref, x_ref, rbin_ref, xx_ref,
-            *rest, k: int, chunk: int, r_chunks: int, metric: str,
-            has_ids: bool = False):
-    if has_ids:
-        # id-stream mode: a (1, chunk) i32 block of ORIGINAL row ids
-        # rides alongside the corpus chunk, so res_i holds final ids
-        # and the epilogue's (pq, k) s2o table gather disappears
-        ids_ref, out_d_ref, out_i_ref, best_d, best_i = rest
-    else:
-        out_d_ref, out_i_ref, best_d, best_i = rest
-        ids_ref = None
+def _kernel(qs_ref, qe_ref, rlo_ref, rhi_ref, q_ref, qbin_ref, x_ref,
+            rbin_ref, out_d_ref, out_i_ref, *, k: int, kp: int, q_blk: int,
+            chunk: int, bk: int, d: int, n_rows: int, metric: str,
+            precision: str):
     w = pl.program_id(0)
-    j = pl.program_id(1)
-    n_w = pl.num_programs(0)
-    qb_now = qb_ref[w]
-    first_visit = jnp.logical_or(
-        w == 0, qb_ref[jnp.maximum(w - 1, 0)] != qb_now
-    )
-    last_visit = jnp.logical_or(
-        w == n_w - 1, qb_ref[jnp.minimum(w + 1, n_w - 1)] != qb_now
-    )
+    qs = qs_ref[w]
+    qe = qe_ref[w]
+    rlo = rlo_ref[w]
+    rhi = rhi_ref[w]
+    prec = _PRECISIONS[precision]
 
-    @pl.when(jnp.logical_and(first_visit, j == 0))
-    def _init():
-        best_d[:] = jnp.full_like(best_d, jnp.inf)
-        best_i[:] = jnp.full_like(best_i, -1)
+    # K-steps over the feature axis: whole bk-wide steps, then (when bk
+    # does not divide d) one step over the LAST bk columns with the
+    # columns an earlier step covered masked out — every load stays in
+    # bounds and no operand needs padding to a power of two
+    kcol = jnp.arange(bk, dtype=jnp.int32)
+    steps = [(k0, None) for k0 in range(0, d - d % bk, bk)]
+    if d % bk:
+        steps.append((d - bk, (d - bk + kcol >= d - d % bk)[None, :]))
 
-    q = q_ref[:]
-    x = x_ref[:]
-    dot = jax.lax.dot_general(
-        q, x,
-        dimension_numbers=(((1,), (1,)), ((), ())),
-        preferred_element_type=jnp.float32,
-        precision=jax.lax.Precision.HIGHEST,
-    )  # (q_blk, chunk)
-    if metric == "cosine":
-        dist = 1.0 - dot
-    else:
-        qq = jnp.sum(q.astype(jnp.float32) ** 2, axis=1, keepdims=True)
-        dist = jnp.maximum(qq + xx_ref[:] - 2.0 * dot, 0.0)
+    def q_tile(k0, kmask):
+        ref = q_ref.at[pl.ds(qs, q_blk), pl.ds(k0, bk)]
+        if kmask is None:
+            return plgpu.load(ref)
+        return plgpu.load(ref, mask=kmask, other=0.0)
 
-    qbins = qbin_ref[0, :][:, None]          # (q_blk, 1)
-    rbins = rbin_ref[:]                      # (1, chunk)
-    ok = jnp.logical_and(qbins == rbins, qbins >= 0)
-    dist = jnp.where(ok, dist, jnp.inf)
+    qq = sum(jnp.sum(t * t, axis=1) for t in (q_tile(*s) for s in steps))
+    qbin = qbin_ref[pl.ds(qs, q_blk)]
+    col = jax.lax.broadcasted_iota(jnp.int32, (q_blk, chunk), 1)
+    colk = jax.lax.broadcasted_iota(jnp.int32, (q_blk, kp), 1)
+    inf = jnp.float32(jnp.inf)
 
-    if has_ids:
-        rows = ids_ref[:]
-    else:
-        rows = (gb_ref[w] * r_chunks + j) * chunk + (
-            jax.lax.broadcasted_iota(jnp.int32, (1, chunk), 1)
+    def merge(cd, r0, bd, bi):
+        """k extract-min passes over (chunk candidates, carried set)."""
+
+        def one(t, carry):
+            cd, bd_left, od, oi = carry
+            a1 = jnp.argmin(cd, axis=1).astype(jnp.int32)
+            m1 = jnp.min(cd, axis=1)
+            a2 = jnp.argmin(bd_left, axis=1).astype(jnp.int32)
+            m2 = jnp.min(bd_left, axis=1)
+            take = m1 < m2  # ties keep the carried (lower) row
+            i2 = jnp.sum(jnp.where(colk == a2[:, None], bi, 0), axis=1)
+            m = jnp.where(take, m1, m2)
+            pos = jnp.where(take, r0 + a1, i2)
+            od = jnp.where(colk == t, m[:, None], od)
+            oi = jnp.where(colk == t, pos[:, None], oi)
+            cd = jnp.where(take[:, None] & (col == a1[:, None]), inf, cd)
+            bd_left = jnp.where(
+                ~take[:, None] & (colk == a2[:, None]), inf, bd_left
+            )
+            return cd, bd_left, od, oi
+
+        _, _, od, oi = jax.lax.fori_loop(
+            0, k, one,
+            (cd, bd, jnp.full((q_blk, kp), inf, jnp.float32),
+             jnp.full((q_blk, kp), -1, jnp.int32)),
+        )
+        return od, oi
+
+    def body(c, carry):
+        bd, bi = carry
+        r0 = rlo + c * chunk
+        rows = r0 + jnp.arange(chunk, dtype=jnp.int32)
+        live = rows < jnp.minimum(rhi, n_rows)
+        acc = jnp.zeros((q_blk, chunk), jnp.float32)
+        xx = jnp.zeros((chunk,), jnp.float32)
+        for k0, kmask in steps:
+            xmask = live[:, None] if kmask is None else live[:, None] & kmask
+            xt = plgpu.load(
+                x_ref.at[pl.ds(r0, chunk), pl.ds(k0, bk)],
+                mask=xmask, other=0.0,
+            )
+            acc += jax.lax.dot_general(
+                q_tile(k0, kmask), xt, (((1,), (1,)), ((), ())),
+                precision=prec, preferred_element_type=jnp.float32,
+            )
+            xx += jnp.sum(xt * xt, axis=1)
+        if metric == "cosine":
+            dist = 1.0 - acc
+        else:
+            dist = jnp.maximum(qq[:, None] + xx[None, :] - 2.0 * acc, 0.0)
+        rb = plgpu.load(rbin_ref.at[pl.ds(r0, chunk)], mask=live, other=-1)
+        ok = (qbin[:, None] == rb[None, :]) & (qbin[:, None] >= 0)
+        dist = jnp.where(ok, dist, inf)
+        kth = jnp.sum(jnp.where(colk == k - 1, bd, 0.0), axis=1)
+        improves = jnp.sum(jnp.where(dist < kth[:, None], 1, 0)) > 0
+        return jax.lax.cond(
+            improves, lambda: merge(dist, r0, bd, bi), lambda: (bd, bi)
         )
 
-    kth = jnp.max(best_d[:], axis=1, keepdims=True)
-    improves = jnp.any(dist < kth)
-
-    @pl.when(improves)
-    def _merge():
-        new_d, new_i = _merge_topk(
-            best_d[:], best_i[:], dist, rows, k,
-            ids=rows if has_ids else None,
-        )
-        best_d[:] = new_d
-        best_i[:] = new_i
-
-    @pl.when(jnp.logical_and(last_visit, j == r_chunks - 1))
-    def _flush():
-        out_d_ref[:] = best_d[:]
-        out_i_ref[:] = jnp.where(jnp.isfinite(best_d[:]), best_i[:], -1)
+    n_chunks = jnp.where(qe > qs, (rhi - rlo + chunk - 1) // chunk, 0)
+    bd, bi = jax.lax.fori_loop(
+        0, n_chunks, body,
+        (jnp.full((q_blk, kp), inf, jnp.float32),
+         jnp.full((q_blk, kp), -1, jnp.int32)),
+    )
+    owned = (qs + jnp.arange(q_blk, dtype=jnp.int32) < qe)[:, None]
+    plgpu.store(out_d_ref.at[pl.ds(qs, q_blk), :], bd, mask=owned)
+    plgpu.store(
+        out_i_ref.at[pl.ds(qs, q_blk), :],
+        jnp.where(bd < inf, bi, -1), mask=owned,
+    )
 
 
 @functools.partial(
     jax.jit,
     static_argnames=(
-        "top_k", "q_blk", "chunk", "r_chunks", "q_pad_rank", "metric",
+        "top_k", "q_blk", "chunk", "num_bins", "metric", "precision",
         "interpret",
     ),
 )
-def pallas_packed_scan(
-    q_stack,       # (P * q_pad_rank + q_blk, d_pad) bin-sorted, rank-major
-    qbin_stack,    # (1, same rows) int32, -1 padding
-    qb,            # (W,) int32 query block per work item
-    gb,            # (W,) int32 group (corpus block run) per work item
-    corpus_padded,  # (G * r_blk, d_pad) group-major padded
-    rbin_padded,   # (1, G * r_blk) int32
-    xx_padded,     # (1, G * r_blk) f32 squared norms
+def kernel_scan_packed(
+    q_sorted,       # (Q_pad, d) queries sorted by bin
+    qbin_sorted,    # (Q_pad,) bin per sorted query (-1 / num_bins: none)
+    qstart,         # (W,) int32 first query row of each work item
+    qend,           # (W,) int32 end of the rows the item owns
+    corpus_sorted,  # (n_pad, d) bin-major
+    rbin,           # (n_pad,) int32 bin per sorted row (-1 pad)
     top_k: int,
     q_blk: int,
     chunk: int,
-    r_chunks: int,
-    q_pad_rank: int,
+    num_bins: int,
     metric: str = "sq_euclidean",
+    precision: str = "highest",
     interpret: bool = False,
-    ids_padded=None,  # optional (1, G * r_blk) int32 original row ids
 ):
-    """Returns (res_d, res_i) over the stacked sorted-query rows
-    (res rows = q_stack rows); positions index the PADDED corpus —
-    unless ``ids_padded`` is given, in which case res_i holds those ids
-    directly (the per-chunk id block streams through VMEM next to the
-    corpus chunk: 4KB vs the chunk's ~1.2MB, and the epilogue's
-    elementwise (pq, k) s2o gather disappears)."""
-    n_rows, d_pad = q_stack.shape
-    w_total = qb.shape[0]
-    has_ids = ids_padded is not None
+    """`scan_packed` on the Triton-route kernel. Returns (res_d, res_i)
+    of shape (Q_pad + q_blk, top_k) over sorted query rows; res_i holds
+    sorted-corpus rows, -1 where invalid. Rows whose bin is not a real
+    bin (padding, gated probe ranks) read (inf, -1)."""
+    if q_blk != next_pow2(q_blk) or chunk != next_pow2(chunk):
+        raise ValueError("q_blk and chunk must be powers of two")
+    if min(q_blk, chunk) < 16:
+        raise ValueError("q_blk and chunk must be >= 16")
+    if top_k > MAX_KERNEL_K:
+        raise ValueError(f"top_k {top_k} > MAX_KERNEL_K {MAX_KERNEL_K}")
+    q_pad, d = q_sorted.shape
+    if d < 16:  # a Triton dot needs K >= 16; zero columns change nothing
+        q_sorted = jnp.pad(q_sorted, ((0, 0), (0, 16 - d)))
+        corpus_sorted = jnp.pad(corpus_sorted, ((0, 0), (0, 16 - d)))
+        d = 16
+    n_rows = corpus_sorted.shape[0]
+    kp = max(next_pow2(top_k), 16)
+    bk = min(64, next_pow2(d + 1) // 2)  # largest power of two <= d
+    q_ext = jnp.pad(q_sorted, ((0, q_blk), (0, 0)))
+    qbin_ext = jnp.pad(qbin_sorted, (0, q_blk), constant_values=-1)
+    # corpus rows of the owned bins: rows are bin-major, and the running
+    # max carries each bin's id over its slack and padding rows (-1)
+    mono = jax.lax.cummax(rbin, axis=0)
+    b_first = qbin_ext[qstart]
+    b_last = qbin_ext[jnp.maximum(qend - 1, qstart)]
+    rlo = jnp.searchsorted(mono, b_first, side="left").astype(jnp.int32)
+    rhi = jnp.searchsorted(mono, b_last, side="right").astype(jnp.int32)
+    rows_out = q_pad + q_blk
     kernel = functools.partial(
-        _kernel, k=top_k, chunk=chunk, r_chunks=r_chunks, metric=metric,
-        has_ids=has_ids,
-    )
-    chunk_spec = pl.BlockSpec(
-        (1, chunk), lambda w, j, qb, gb: (0, gb[w] * r_chunks + j)
-    )
-    in_specs = [
-        pl.BlockSpec((q_blk, d_pad), lambda w, j, qb, gb: (qb[w], 0)),
-        pl.BlockSpec((1, q_blk), lambda w, j, qb, gb: (0, qb[w])),
-        pl.BlockSpec(
-            (chunk, d_pad),
-            lambda w, j, qb, gb: (gb[w] * r_chunks + j, 0),
-        ),
-        chunk_spec,
-        chunk_spec,
-    ]
-    inputs = [qb, gb, q_stack, qbin_stack, corpus_padded, rbin_padded,
-              xx_padded]
-    if has_ids:
-        in_specs.append(chunk_spec)
-        inputs.append(ids_padded)
-    grid_spec = pltpu.PrefetchScalarGridSpec(
-        num_scalar_prefetch=2,
-        grid=(w_total, r_chunks),
-        in_specs=in_specs,
-        out_specs=[
-            pl.BlockSpec((q_blk, top_k), lambda w, j, qb, gb: (qb[w], 0)),
-            pl.BlockSpec((q_blk, top_k), lambda w, j, qb, gb: (qb[w], 0)),
-        ],
-        scratch_shapes=[
-            pltpu.VMEM((q_blk, top_k), jnp.float32),
-            pltpu.VMEM((q_blk, top_k), jnp.int32),
-        ],
+        _kernel, k=top_k, kp=kp, q_blk=q_blk, chunk=chunk, bk=bk, d=d,
+        n_rows=n_rows, metric=metric, precision=precision,
     )
     out_d, out_i = pl.pallas_call(
         kernel,
-        grid_spec=grid_spec,
+        grid=(qstart.shape[0],),
         out_shape=[
-            jax.ShapeDtypeStruct((n_rows, top_k), jnp.float32),
-            jax.ShapeDtypeStruct((n_rows, top_k), jnp.int32),
+            jax.ShapeDtypeStruct((rows_out, kp), jnp.float32),
+            jax.ShapeDtypeStruct((rows_out, kp), jnp.int32),
         ],
+        backend="triton",
+        compiler_params=plgpu.CompilerParams(num_warps=4, num_stages=2),
         interpret=interpret,
-    )(*inputs)
-    return out_d, out_i
+        name="binned_packed_scan",
+    )(qstart, qend, rlo, rhi, q_ext, qbin_ext, corpus_sorted, rbin)
+    # rows no work item owns were never written
+    real = ((qbin_ext >= 0) & (qbin_ext < num_bins))[:, None]
+    res_d = jnp.where(real, out_d[:, :top_k], jnp.inf)
+    res_i = jnp.where(real, out_i[:, :top_k], -1)
+    return res_d, res_i

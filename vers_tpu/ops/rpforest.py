@@ -1,6 +1,6 @@
 """Level-synchronous random-hyperplane tree builder (device side).
 
-TPU re-expression of the reference's recursive RP-tree construction
+Batched re-expression of the reference's recursive RP-tree construction
 (`vers/src/indexes/lsh.rs:58-111`): instead of host recursion over
 ``Vec<usize>`` partitions, ALL nodes of one level split simultaneously:
 
@@ -267,8 +267,7 @@ def _descend_once_flat(queries, coeff_flat, const_flat, cbase_t, split,
     all trees/levels live in one (total_tests, d) array; ``cbase_t``
     (L,) maps this tree's level l to its first row. Identical routing
     (same coefficients, same tie rules) — the dense (T, L, TC, d)
-    layout is mostly padding (~2.2GB at 1M x 300 x 8 trees, HBM OOM at
-    16 trees) while the packed one is the sum of actual inner nodes
+    layout is mostly padding (~2.2GB at 1M x 300 x 8 trees) while the packed one is the sum of actual inner nodes
     (~24MB per 1M-row tree)."""
     q_n = queries.shape[0]
     total = coeff_flat.shape[0]

@@ -2,13 +2,12 @@
 
 The reference's heaps (`vers/src/indexes/models.rs:63-112`) and
 sort-and-take pipelines (`ivfflat.rs:172-178`, `utils.rs:68-82`) become
-``lax.top_k`` over fixed-size arrays: TPUs want rectangles, not heaps.
+``lax.top_k`` over fixed-size arrays.
 
-``fused_scan_topk`` is the workhorse: it streams the corpus through the
-distance matmul in chunks and carries a running (Q, k) best set, so the
-full (Q, N) distance matrix is never materialized — the XLA analogue of
-the Pallas kernel in ``vers_tpu.ops.pallas_topk`` and the TPU analogue
-of the reference's streaming SIMD scans.
+``fused_scan_topk`` is the exact flat search: it streams the corpus
+through the distance matmul in chunks and carries a running (Q, k) best
+set, so the full (Q, N) distance matrix is never materialized — the
+batched analogue of the reference's streaming SIMD scans.
 """
 
 from __future__ import annotations
@@ -101,72 +100,3 @@ def fused_scan_topk(
         (jnp.arange(n_chunks, dtype=jnp.int32), chunks),
     )
     return best_d, best_i
-
-
-@functools.partial(
-    jax.jit,
-    static_argnames=("k", "metric", "chunk_size", "recall_target", "precision"),
-)
-def approx_scan_topk(
-    queries: jnp.ndarray,
-    corpus: jnp.ndarray,
-    n_valid,
-    k: int,
-    metric: str = "sq_euclidean",
-    chunk_size: int = 32768,
-    recall_target: float = 0.99,
-    precision=jax.lax.Precision.DEFAULT,
-):
-    """High-throughput top-k using TPU-native ``lax.approx_min_k``
-    (the hardware PartialReduce op ScaNN uses) per corpus chunk, then
-    one exact top-k over the collected k-per-chunk candidates.
-
-    ~4x faster than the exact paths at recall ~0.99 vs exact (bf16
-    matmul + approximate within-chunk reduction). Same signature and
-    return convention as ``fused_scan_topk``.
-    """
-    n_pad, d = corpus.shape
-    q = queries.shape[0]
-    chunk_size = min(chunk_size, n_pad)
-    rem = (-n_pad) % chunk_size
-    if rem:
-        corpus = jnp.pad(corpus, ((0, rem), (0, 0)))
-        n_pad += rem
-    n_chunks = n_pad // chunk_size
-    chunks = corpus.reshape(n_chunks, chunk_size, d)
-    xx = jnp.sum(
-        corpus.astype(jnp.float32) ** 2, axis=1
-    ).reshape(n_chunks, chunk_size)
-    row_in_chunk = jnp.arange(chunk_size, dtype=jnp.int32)
-
-    def step(_, inp):
-        ci, chk, xxc = inp
-        dot = jax.lax.dot_general(
-            queries, chk,
-            dimension_numbers=(((1,), (1,)), ((), ())),
-            precision=precision,
-            preferred_element_type=jnp.float32,
-        )
-        if metric == "cosine":
-            dist = 1.0 - dot
-        else:
-            dist = xxc[None, :] - 2.0 * dot  # qq omitted: rank-invariant
-        rows = ci * chunk_size + row_in_chunk
-        dist = jnp.where(rows[None, :] < n_valid, dist, jnp.inf)
-        bd, bi = jax.lax.approx_min_k(dist, k, recall_target=recall_target)
-        return None, (bd, bi + ci * chunk_size)
-
-    _, (ds, is_) = jax.lax.scan(
-        step, None, (jnp.arange(n_chunks, dtype=jnp.int32), chunks, xx)
-    )
-    cand_d = jnp.moveaxis(ds, 0, 1).reshape(q, n_chunks * k)
-    cand_i = jnp.moveaxis(is_, 0, 1).reshape(q, n_chunks * k)
-    fin_d, sel = topk_smallest(cand_d, k)
-    fin_i = jnp.take_along_axis(cand_i, sel, axis=1)
-    fin_i = jnp.where(jnp.isfinite(fin_d), fin_i, -1)
-    if metric != "cosine":
-        # restore true squared distances (qq was omitted during the scan)
-        qq = jnp.sum(queries.astype(jnp.float32) ** 2, axis=1, keepdims=True)
-        fin_d = jnp.maximum(fin_d + qq, 0.0)
-        fin_d = jnp.where(fin_i >= 0, fin_d, jnp.inf)
-    return fin_d, fin_i

@@ -8,7 +8,7 @@ across chips, so serving throughput scales with the mesh while every
 chip runs the same single-chip beam kernel (`vers_tpu.ops.beam`). The
 whole descent (all layers + exact f32 rescore) is ONE jitted shard_map
 program — no cross-chip collectives at all on the query path, which is
-the ideal ICI profile for a replicated-model / sharded-data serving
+the ideal communication profile for a replicated-model / sharded-data serving
 fleet.
 
 (The alternative axis — sharding the f32 rescore corpus — only splits

@@ -6,7 +6,7 @@ scales *throughput* by replicating that state per chip. This class
 scales *capacity*: corpus rows split into contiguous blocks, ONE
 independent HNSW subgraph per shard over its local rows, so per-chip
 state is ~1/n_shards of a single-graph index and an index larger than
-one chip's HBM becomes possible.
+one card's memory becomes possible.
 
 Query = every shard runs its full local descent (the same brute-force
 layer-1 routing scan + layer-0 beam + f32 rescore as the single-chip
@@ -24,9 +24,9 @@ work. That trade (work for capacity+recall) is the standard partitioned
 ANN serving design.
 
 Construction cost note: S subgraphs of n/S rows each build *faster*
-than one n-row graph (beam steps scale with log n and wave sizes
-stay MXU-friendly), and shard builds are independent — on a real pod
-they can run concurrently per host.
+than one n-row graph (beam steps scale with log n), and shard builds
+are independent — they could run concurrently, one per card (today
+they run one after another on the first device).
 """
 
 from __future__ import annotations
@@ -212,9 +212,7 @@ class PartitionedHNSWIndex(PartitionedIndexBase):
             if g["vecs"] is not None:
                 vecs[s * per : s * per + n_s] = g["vecs"][:n_s]
             else:  # device-resident shard corpus: download once
-                from vers_tpu.core import from_device
-
-                vecs[s * per : s * per + n_s] = from_device(
+                vecs[s * per : s * per + n_s] = np.asarray(
                     self.shards[s]._corpus_dev[:n_s]
                 )
             if g["adjs"]:

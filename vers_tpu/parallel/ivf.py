@@ -7,7 +7,7 @@ Search: every shard stores its rows cluster-major; queries probe the
 (replicated) centroids once, then each chip runs the same packed
 binned scan (`vers_tpu.ops.binned.scan_packed` logic) over its local
 members of the probed clusters inside one `shard_map` program; local
-top-k candidates are `all_gather`ed over ICI and re-top-k'd. External
+top-k candidates are `all_gather`ed across cards and re-top-k'd. External
 ids are global, so the merge needs no offset bookkeeping.
 
 Persistence: per-shard files + manifest (same scheme as
@@ -32,6 +32,7 @@ from vers_tpu.index.base import Index
 from vers_tpu.io.bincode import Reader, Writer
 from vers_tpu.models.candidates import SearchResult
 from vers_tpu.ops.distance import pairwise_distance, pairwise_sq_euclidean
+from vers_tpu.ops.kmeans import assign_clusters
 from vers_tpu.ops.topk import topk_smallest
 from vers_tpu.parallel.kmeans import sharded_build_kmeans
 from vers_tpu.parallel.mesh import SHARD_AXIS, make_mesh, shard_rows
@@ -76,7 +77,7 @@ def _local_packed_scan(
     (res_d, res_i), _ = jax.lax.scan(per_group, (res_d, res_i), (gq, gr))
     d_loc = res_d[:q_pad]
     i_loc = res_i[:q_pad]
-    # cross-chip candidate merge over ICI
+    # cross-chip candidate merge
     dg = jax.lax.all_gather(d_loc, axis, axis=1, tiled=True)  # (Q, S*k)
     ig = jax.lax.all_gather(i_loc, axis, axis=1, tiled=True)
     fd, sel = topk_smallest(dg, top_k)
@@ -159,21 +160,13 @@ class ShardedIVFFlatIndex(Index):
         stacked_oid = np.full((n_shards, n_pad), -1, np.int32)
         sizes_all = np.zeros((n_shards, k), np.int64)
         starts_all = np.zeros((n_shards, k), np.int64)
+        centroids_dev = jnp.asarray(self._centroids)
         for s, (v, ids) in enumerate(zip(self._shard_values, self._shard_ids)):
             n_s = len(v)
             if n_s == 0:
                 continue
-            assign = np.argmin(
-                ((v[:, None, :] - self._centroids[None, :, :]) ** 2).sum(-1)
-                if n_s * k * self.dim < (1 << 24)
-                else np.stack(
-                    [
-                        ((v - c[None, :]) ** 2).sum(-1)
-                        for c in self._centroids
-                    ],
-                    axis=1,
-                ),
-                axis=1,
+            assign = np.asarray(
+                assign_clusters(jnp.asarray(v), n_s, centroids_dev)
             )
             order = np.argsort(assign, kind="stable")
             sizes = np.bincount(assign, minlength=k)

@@ -10,14 +10,11 @@ single-dispatch program as the single-chip path — multiprobe descent +
 lax.scan over trees with the packed-scan engine + dedup merge
 (`index/lsh._search_batch_internal`) — inside one shard_map, so serving
 throughput scales with the mesh and the query path needs no cross-chip
-collectives at all (the same ICI profile as `parallel/hnsw.py`).
+collectives at all (the same profile as `parallel/hnsw.py`).
 
-Replicating the shared layout (not the stacked one) is what makes this
-layer hold the reference's headline forest at all: at 1M x 300 x 8
-trees the stacked layout is ~2 corpus copies PER TREE (~20GB/chip,
-structurally impossible on a 16GB chip) while the shared layout is one
-~1.2GB corpus + ~4·T·n bytes of int32 tables + one live gathered tree
-view (~2.5GB peak) — see docs/MULTICHIP.md.
+The replicated state is the shared layout: one ~1.2GB corpus at
+1M x 300, ~4·T·n bytes of int32 tables and one live gathered tree view,
+not a corpus copy per tree — see docs/MULTICHIP.md.
 
 Tree-parallelism (the reference's axis) deliberately does NOT map to
 chips: trees share the corpus, and candidates from different trees must
@@ -37,6 +34,7 @@ from jax.sharding import PartitionSpec as P
 
 from jax import shard_map
 
+from vers_tpu.engine import resolve_engine
 from vers_tpu.index.lsh import ANNIndex
 from vers_tpu.models.candidates import SearchResult
 from vers_tpu.parallel.mesh import SHARD_AXIS, make_mesh
@@ -86,6 +84,8 @@ class ShardedANNIndex:
     def _search_batch_rows(
         self, queries, top_k: int, probes_per_tree: Optional[int] = None
     ):
+        from vers_tpu.ops.forest_shared import forest_search_shared
+
         base = self.base
         base._rebuild_dirty()
         q = np.asarray(queries, np.float32)
@@ -93,62 +93,22 @@ class ShardedANNIndex:
             q = q[None]
         q_n = q.shape[0]
         n_shards = self.mesh.shape[SHARD_AXIS]
-        if probes_per_tree is None:
-            n_probes = base._auto_probes(top_k)
-            deficit_k = top_k if n_probes > 1 else 0
-        else:
-            n_probes = max(1, probes_per_tree)
-            deficit_k = 0
-        engine = base._shared_engine(top_k)
-        # per-shard block aligned to the engine's query-tile floor: the
-        # tile plan below is built for the PER-CHIP count
-        blk = 128 if engine == "pallas" else 64
-        q_pad = -(-q_n // (blk * n_shards)) * (blk * n_shards)
+        n_probes, deficit_k = base._probe_plan(top_k, probes_per_tree)
+        # the tile plan below is built for the PER-CHIP query count
+        q_pad = -(-q_n // (64 * n_shards)) * (64 * n_shards)
         qp = np.pad(q, ((0, q_pad - q_n), (0, 0)))
-        q_local = q_pad // n_shards
-        sh, plan = base._shared_plan(q_local, top_k, n_probes, engine)
+        sh, plan = base._shared_plan(
+            q_pad // n_shards, top_k,
+            resolve_engine(base.config.engine, top_k),
+        )
 
-        if engine == "pallas":
-            from vers_tpu.ops.forest_shared import (
-                forest_search_shared_pallas,
+        def local(qs, *reps):
+            return forest_search_shared(
+                qs, *reps, n_probes=n_probes, num_bins=sh["num_bins"],
+                top_k=top_k, deficit_k=deficit_k, **plan,
             )
 
-            def local(qs, cf, cn, cb, splits, buckets, offsets,
-                      sizes_dev, corpus_pad, xx, src, rbin, g_first):
-                return forest_search_shared_pallas(
-                    qs, cf, cn, cb, splits, buckets, offsets,
-                    sizes_dev, corpus_pad, xx, src, rbin, g_first,
-                    n_probes=n_probes, num_bins=sh["num_bins"],
-                    top_k=top_k, deficit_k=deficit_k, **plan,
-                )
-
-            reps = (
-                sh["coeffs"], sh["consts"], sh["cbase"], sh["splits"],
-                sh["buckets"], sh["offsets"], sh["sizes_dev"],
-                sh["corpus_pad"], sh["xx"], sh["src"], sh["rbin"],
-                sh["g_first"],
-            )
-        else:
-            from vers_tpu.ops.forest_shared import forest_search_shared_xla
-
-            def local(qs, cf, cn, cb, splits, buckets, offsets,
-                      sizes_dev, corpus_pad, order, rbin_sorted,
-                      g_first, g_rstart):
-                return forest_search_shared_xla(
-                    qs, cf, cn, cb, splits, buckets, offsets,
-                    sizes_dev, corpus_pad, order, rbin_sorted,
-                    g_first, g_rstart,
-                    n_probes=n_probes, num_bins=sh["num_bins"],
-                    top_k=top_k, deficit_k=deficit_k, **plan,
-                )
-
-            reps = (
-                sh["coeffs"], sh["consts"], sh["cbase"], sh["splits"],
-                sh["buckets"], sh["offsets"], sh["sizes_dev"],
-                sh["corpus_pad"], sh["order"], sh["rbin_sorted"],
-                sh["g_first"], sh["g_rstart"],
-            )
-
+        reps = base.shared_operands(sh)
         fn = shard_map(
             local,
             mesh=self.mesh,

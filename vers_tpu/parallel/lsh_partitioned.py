@@ -11,9 +11,9 @@ Each shard's local search runs on the SHARED-corpus layout
 (`ops/forest_shared`, the reference's own memory shape `lsh.rs:44,53`):
 the shard's corpus block lives on its chip exactly ONCE, trees hold
 int32 index tables, and the per-tree bin-major view is gathered inside
-a lax.scan (one tree live at a time). Per-chip HBM is therefore
-~n/S corpus rows + one gathered tree view — NOT the stacked layout's
-~2·T corpus copies (see docs/MULTICHIP.md for the 1M x 300 math).
+a lax.scan (one tree live at a time). Per-chip device memory is
+therefore ~n/S corpus rows + one gathered tree view, not a corpus copy
+per tree (see docs/MULTICHIP.md for the 1M x 300 math).
 
 Query = ONE program: the query batch replicates, every shard runs the
 same single-dispatch shared-corpus forest search as the single-chip
@@ -42,7 +42,9 @@ from jax.sharding import NamedSharding, PartitionSpec as P
 from jax import shard_map
 
 from vers_tpu.core import device_id_map, round_up
+from vers_tpu.engine import resolve_engine
 from vers_tpu.index.lsh import ANNIndex
+from vers_tpu.ops.binned import kernel_q_blk
 from vers_tpu.ops.topk import topk_smallest
 from vers_tpu.parallel.mesh import SHARD_AXIS, make_mesh
 from vers_tpu.parallel.partitioned import PartitionedIndexBase
@@ -51,8 +53,8 @@ from vers_tpu.parallel.partitioned import PartitionedIndexBase
 @functools.partial(
     jax.jit,
     static_argnames=(
-        "mesh", "engine", "n_probes", "num_bins", "top_k", "pern",
-        "deficit_k", "plan",
+        "mesh", "n_probes", "num_bins", "top_k", "pern", "deficit_k",
+        "plan",
     ),
 )
 def _partitioned_forest_search_shared(
@@ -64,14 +66,12 @@ def _partitioned_forest_search_shared(
     buckets,    # (S, T, L, SC)
     offsets,    # (S, T)
     sizes,      # (S, kb) int32 leaf sizes (deficit gate)
-    corpus,     # (S*pern, d_pad) ONE corpus copy per shard
-    xx,         # (S*pern,) squared norms
-    t_a,        # pallas: src (S, T, G*r_blk) | xla: order (S, T, pern)
-    t_b,        # pallas: rbin (S, T, G*r_blk) | xla: rbin_sorted
+    corpus,     # (S*pern, d) ONE corpus copy per shard
+    order,      # (S, T, pern) tree-sorted pos -> local row
+    rbin_sorted,  # (S, T, pern)
     g_first,    # (S, T, G+1)
-    g_rstart,   # (S, T, G) (xla only; zeros for pallas)
+    g_rstart,   # (S, T, G)
     mesh,
-    engine: str,
     n_probes: int,
     num_bins: int,
     top_k: int,
@@ -81,40 +81,28 @@ def _partitioned_forest_search_shared(
 ):
     plan_kw = dict(plan)
 
-    def local(q, cf, cn, cb, sp, bk, of, sz, co, x2, ta, tb, gf, gr):
-        if engine == "pallas":
-            from vers_tpu.ops.forest_shared import (
-                forest_search_shared_pallas,
-            )
+    from vers_tpu.ops.forest_shared import forest_search_shared
 
-            d, internal = forest_search_shared_pallas(
-                q, cf[0], cn[0], cb[0], sp[0], bk[0], of[0], sz[0],
-                co, x2, ta[0], tb[0], gf[0],
-                n_probes=n_probes, num_bins=num_bins, top_k=top_k,
-                deficit_k=deficit_k, **plan_kw,
-            )
-        else:
-            from vers_tpu.ops.forest_shared import forest_search_shared_xla
-
-            d, internal = forest_search_shared_xla(
-                q, cf[0], cn[0], cb[0], sp[0], bk[0], of[0], sz[0],
-                co, ta[0], tb[0], gf[0], gr[0],
-                n_probes=n_probes, num_bins=num_bins, top_k=top_k,
-                deficit_k=deficit_k, **plan_kw,
-            )
+    def local(q, cf, cn, cb, sp, bk, of, sz, co, od, rs, gf, gr):
+        d, internal = forest_search_shared(
+            q, cf[0], cn[0], cb[0], sp[0], bk[0], of[0], sz[0],
+            co, od[0], rs[0], gf[0], gr[0],
+            n_probes=n_probes, num_bins=num_bins, top_k=top_k,
+            deficit_k=deficit_k, **plan_kw,
+        )
         off = jax.lax.axis_index(SHARD_AXIS).astype(jnp.int32) * pern
         return d, jnp.where(internal >= 0, internal + off, -1)
 
     fn = shard_map(
         local,
         mesh=mesh,
-        in_specs=(P(),) + (P(SHARD_AXIS),) * 13,
+        in_specs=(P(),) + (P(SHARD_AXIS),) * 12,
         out_specs=(P(None, SHARD_AXIS), P(None, SHARD_AXIS)),
         check_vma=False,
     )
     all_d, all_i = fn(
         queries, coeffs, consts, cbase, splits, buckets, offsets, sizes,
-        corpus, xx, t_a, t_b, g_first, g_rstart,
+        corpus, order, rbin_sorted, g_first, g_rstart,
     )
     fin_d, sel = topk_smallest(all_d, top_k)
     fin_i = jnp.take_along_axis(all_i, sel, axis=1)
@@ -182,8 +170,8 @@ class PartitionedANNIndex(PartitionedIndexBase):
 
     def _ensure_device_cache(self):
         """Engine-independent state: descent tables, ONE corpus copy per
-        shard (row-sharded), squared norms, id maps. The per-tree index
-        tables are engine/r_blk-dependent and built by `_tables`."""
+        shard (row-sharded), id maps. The per-tree index tables are
+        r_blk-dependent and built by `_tables`."""
         if self._device_cache is not None:
             return self._device_cache
         for s in self.shards:
@@ -201,7 +189,6 @@ class PartitionedANNIndex(PartitionedIndexBase):
             sum(t.num_buckets for t in ts) for ts in trees
         )
         d = self.dim
-        d_pad = round_up(d, 128)
         pern = round_up(
             max(s._values.shape[0] for s in self.shards), 128
         )
@@ -213,7 +200,7 @@ class PartitionedANNIndex(PartitionedIndexBase):
         buckets = np.full((n_shards, T, L, SC), -1, np.int32)
         offsets = np.zeros((n_shards, T), np.int32)
         sizes = np.zeros((n_shards, kb), np.int32)
-        corpus = np.zeros((n_shards * pern, d_pad), np.float32)
+        corpus = np.zeros((n_shards * pern, d), np.float32)
         row_to_gid = np.full((n_shards * pern,), -1, np.int64)
         for s, shard in enumerate(self.shards):
             cf, cn, cb, sp, bk = flats[s]
@@ -232,11 +219,9 @@ class PartitionedANNIndex(PartitionedIndexBase):
                     sizes[s, off + b] = len(m)
                 off += tr.num_buckets
             rows = shard._values.shape[0]
-            corpus[s * pern : s * pern + rows, :d] = shard._values
+            corpus[s * pern : s * pern + rows] = shard._values
             ids = shard._ids  # internal row -> local input ordinal
             row_to_gid[s * pern : s * pern + rows] = self.gids[s][ids]
-        xx = np.einsum("nd,nd->n", corpus, corpus)
-
         sh = NamedSharding(self.mesh, P(SHARD_AXIS))
         self._device_cache = dict(
             coeffs=jax.device_put(coeffs, sh),
@@ -247,11 +232,10 @@ class PartitionedANNIndex(PartitionedIndexBase):
             offsets=jax.device_put(offsets, sh),
             sizes=jax.device_put(sizes, sh),
             corpus=jax.device_put(corpus, sh),
-            xx=jax.device_put(xx.astype(np.float32), sh),
             pern=pern,
             kb=kb,
             T=T,
-            tables={},   # (engine, r_blk) -> stacked shared tree tables
+            tables={},   # r_blk -> stacked shared tree tables
             row_to_gid=row_to_gid,
             row_to_gid_dev=device_id_map(row_to_gid),
         )
@@ -259,17 +243,15 @@ class PartitionedANNIndex(PartitionedIndexBase):
 
     def _unified_r_blk(self, engine: str, top_k: int) -> int:
         """One r_blk across shards (statics must agree): each shard's
-        natural single-chip target, unified by max."""
-        cache = self._ensure_device_cache()
-        r_blk = 128
+        natural single-chip target (`ANNIndex._shared_plan`), unified by
+        max."""
+        r_blk = 1
         for s in self.shards:
             max_bin = s._max_bin()
             n = s._values.shape[0]
             n_pad = round_up(max(n, 1), 128)
             if engine == "pallas":
-                r_blk = max(
-                    r_blk, round_up(max(1024, max_bin, top_k), 1024)
-                )
+                r_blk = max(r_blk, max_bin)
             else:
                 r_target = max(
                     max_bin, top_k, min(8192, max(1024, n // 16))
@@ -277,17 +259,15 @@ class PartitionedANNIndex(PartitionedIndexBase):
                 r_blk = max(r_blk, min(round_up(r_target, 128), n_pad))
         return r_blk
 
-    def _tables(self, engine: str, top_k: int):
+    def _tables(self, r_blk: int):
         """Per-shard shared-corpus tree tables (`ops/forest_shared.
         shared_tree_tables`), stacked over shards and padded to common
-        statics, device-put row-sharded. Cached per (engine, r_blk)."""
+        statics, device-put row-sharded. Cached per r_blk."""
         from vers_tpu.ops.forest_shared import shared_tree_tables
 
         cache = self._ensure_device_cache()
-        r_blk = self._unified_r_blk(engine, top_k)
-        key = (engine, r_blk)
-        if key in cache["tables"]:
-            return cache["tables"][key]
+        if r_blk in cache["tables"]:
+            return cache["tables"][r_blk]
         n_shards = len(self.shards)
         T = cache["T"]
         pern = cache["pern"]
@@ -301,16 +281,11 @@ class PartitionedANNIndex(PartitionedIndexBase):
         ]
         g_max = max(t["g_max"] for t in ts)
         g_total_min = min(t["g_total"] for t in ts)
-        src = np.full((n_shards, T, g_max * r_blk), -1, np.int32)
-        rbin = np.full((n_shards, T, g_max * r_blk), -1, np.int32)
         order = np.full((n_shards, T, pern), -1, np.int32)
         rbin_sorted = np.full((n_shards, T, pern), -1, np.int32)
         g_first = np.zeros((n_shards, T, g_max + 1), np.int32)
         g_rstart = np.zeros((n_shards, T, g_max), np.int32)
         for s, t in enumerate(ts):
-            w = t["src"].shape[1]
-            src[s, :, :w] = t["src"]
-            rbin[s, :, :w] = t["rbin"]
             np_s = t["order"].shape[1]
             order[s, :, :np_s] = t["order"]
             rbin_sorted[s, :, :np_s] = t["rbin_sorted"]
@@ -319,22 +294,14 @@ class PartitionedANNIndex(PartitionedIndexBase):
             g_first[s, :, gw:] = t["g_first"][:, -1:]
             g_rstart[s, :, : t["g_rstart"].shape[1]] = t["g_rstart"]
         sh = NamedSharding(self.mesh, P(SHARD_AXIS))
-        if engine == "pallas":
-            t_a = jax.device_put(src, sh)
-            t_b = jax.device_put(rbin, sh)
-            g_r = jax.device_put(
-                np.zeros((n_shards, T, g_max), np.int32), sh
-            )
-        else:
-            t_a = jax.device_put(order, sh)
-            t_b = jax.device_put(rbin_sorted, sh)
-            g_r = jax.device_put(g_rstart, sh)
         out = dict(
-            r_blk=r_blk, g_max=g_max, g_total_min=g_total_min,
-            t_a=t_a, t_b=t_b,
-            g_first=jax.device_put(g_first, sh), g_rstart=g_r,
+            g_max=g_max, g_total_min=g_total_min,
+            order=jax.device_put(order, sh),
+            rbin_sorted=jax.device_put(rbin_sorted, sh),
+            g_first=jax.device_put(g_first, sh),
+            g_rstart=jax.device_put(g_rstart, sh),
         )
-        cache["tables"][key] = out
+        cache["tables"][r_blk] = out
         return out
 
     # -- Index API -----------------------------------------------------------
@@ -353,22 +320,11 @@ class PartitionedANNIndex(PartitionedIndexBase):
         else:
             n_probes = max(1, probes_per_tree)
             deficit_k = 0
-        engine = self.shards[0]._shared_engine(top_k)
-        tbl = self._tables(engine, top_k)
+        engine = resolve_engine(self.shards[0].config.engine, top_k)
+        r_blk = self._unified_r_blk(engine, top_k)
+        tbl = self._tables(r_blk)
         if engine == "pallas":
-            chunk = 1024
-            q_blk = 128 if jax.default_backend() == "tpu" else 64
-            q_pad_rank = round_up(q_n, q_blk)
-            blocks = (
-                n_probes * q_pad_rank if n_probes > 1 else q_pad_rank
-            ) // q_blk
-            plan = dict(
-                q_blk=q_blk, r_blk=tbl["r_blk"], chunk=chunk,
-                w_rank=blocks + tbl["g_max"] + 1,
-                q_pad_rank=q_pad_rank,
-                interpret=jax.default_backend() != "tpu",
-            )
-            qdev = jnp.asarray(q)
+            q_blk = kernel_q_blk(q_n, tbl["g_max"])
         else:
             q_blk = min(
                 round_up(
@@ -376,25 +332,21 @@ class PartitionedANNIndex(PartitionedIndexBase):
                 ),
                 round_up(q_n, 8),
             )
-            plan = dict(
-                q_blk=q_blk, r_blk=tbl["r_blk"],
-                w_rank=(q_n + q_blk - 1) // q_blk + tbl["g_max"],
-                use_approx=jax.default_backend() == "tpu",
-            )
-            # the xla scan tiles slice the col-padded corpus; pad the
-            # queries to match (zero cols contribute nothing) — the
-            # jitted callee pads too, but padding here keeps the
-            # replicated operand's shape stable across d
-            qdev = jnp.asarray(q)
+        plan = dict(
+            q_blk=q_blk, r_blk=r_blk, engine=engine,
+            w_rank=(q_n + q_blk - 1) // q_blk + tbl["g_max"],
+        )
+        qdev = jnp.asarray(q)
         bd, bi = _partitioned_forest_search_shared(
             qdev,
             cache["coeffs"], cache["consts"], cache["cbase"],
             cache["splits"], cache["buckets"], cache["offsets"],
             cache["sizes"],
-            cache["corpus"], cache["xx"],
-            tbl["t_a"], tbl["t_b"], tbl["g_first"], tbl["g_rstart"],
+            cache["corpus"],
+            tbl["order"], tbl["rbin_sorted"], tbl["g_first"],
+            tbl["g_rstart"],
             self.mesh,
-            engine=engine, n_probes=n_probes, num_bins=cache["kb"],
+            n_probes=n_probes, num_bins=cache["kb"],
             top_k=top_k, pern=cache["pern"], deficit_k=deficit_k,
             plan=tuple(sorted(plan.items())),
         )

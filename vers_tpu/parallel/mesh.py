@@ -2,7 +2,8 @@
 
 The reference is single-process shared-memory (rayon work stealing +
 DashSet, see SURVEY §2); its scale-out axis is absent. Here the corpus
-axis ``n`` shards across a 1-D `jax.sharding.Mesh` over ICI: each chip
+axis ``n`` shards across a 1-D `jax.sharding.Mesh` (every card reaches
+every other at the same rate over NVLink, so a 1-D mesh fits): each chip
 scans its rows with the same fused kernels, and cross-chip merges ride
 XLA collectives (`psum` for k-means reductions, `all_gather` for
 top-k candidate merges).

@@ -1,10 +1,10 @@
 """Sharded exact search: each chip runs the fused distance+top-k scan
 over its corpus shard, then a cross-chip top-k merge (`all_gather` of
-k·n_shards candidates + re-top-k) rides ICI.
+k·n_shards candidates + re-top-k) rides the links between cards
+(NVLink on a four-H100 host).
 
-This is the GloVe-1.2M / v5e-8 config of BASELINE.md: the TPU
-equivalent of scaling the corpus axis the reference can only hold in
-one host's RAM.
+This is the GloVe-1.2M sharded config of BASELINE.json (config 5):
+scaling the corpus axis the reference can only hold in one host's RAM.
 """
 
 from __future__ import annotations

@@ -3,7 +3,7 @@ exact fused search per shard + cross-chip top-k merge, and sharded
 save/load (one file per shard + a manifest) with an export path to the
 single-file format.
 
-This is the BASELINE.md config-5 deliverable (GloVe-1.2M on v5e-8):
+This is BASELINE.json config 5 (GloVe-1.2M sharded over a mesh):
 the scale-out story the single-host reference cannot express.
 """
 

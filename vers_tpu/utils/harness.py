@@ -19,7 +19,7 @@ def search_exhaustive(
 ) -> List[Tuple[int, float]]:
     """Brute-force top-k by squared euclidean — the recall ground truth
     (parity with `utils.rs:68-82`). Host-side numpy; use FlatIndex for
-    the TPU version."""
+    the device version."""
     q = np.asarray(query, dtype=np.float32).reshape(-1)
     diffs = np.asarray(vector_data, dtype=np.float32) - q[None, :]
     d2 = np.einsum("nd,nd->n", diffs, diffs)
